@@ -3,10 +3,11 @@
 The same dataclasses, defaults and JSON round trip as the JAX package's
 `asy_vrnet_tpu/config.py`, so one config file drives both packages.  The port
 keeps its own copy and never imports the JAX package.  Fields that only steer
-the TPU build (`use_pallas_cluster`'s Pallas wording, `prestem_s2d`,
-`train_remat`) are kept for the round trip; the port's model reads
-`use_pallas_cluster` as "use the fused ClusterBlock kernels" and always takes
-the literal pre-stem entry.
+the TPU build (`use_pallas_cluster`'s and `use_pallas_seg`'s Pallas wording,
+`prestem_s2d`, `train_remat`) are kept for the round trip; the port reads
+`use_pallas_cluster` as "use the fused ClusterBlock kernels" (inference only
+so far: training needs False) and `use_pallas_seg` as "use the fused seg-loss
+kernel", and always takes the literal pre-stem entry.
 """
 from __future__ import annotations
 
@@ -156,8 +157,11 @@ class LossConfig:
     obj_weight: float = 2.0
     cls_weight: float = 2.0
     cls_balance_weights: tuple[float, ...] | None = None  # per-seg-class CE weights
-    # fused Pallas seg-loss+f_score kernel (ops/losses_seg_pallas.py):
-    # None = auto (TPU only), True/False force.  Same math as the jnp oracle.
+    # The name is the JAX package's, kept so JSON configs round-trip between
+    # the packages.  In the port it means "use the fused seg-loss kernel"
+    # (ops/losses_seg_fused.py): None = on CUDA tensors only, True/False
+    # force (True on the CPU runs the fused path through its plain twins).
+    # Same math as the unfused losses either way.
     use_pallas_seg: bool | None = None
 
 

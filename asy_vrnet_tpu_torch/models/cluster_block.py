@@ -7,6 +7,9 @@ block is one fused op (`ops/block.py`: a CUDA kernel on the card, its plain
 twin on the CPU).  Otherwise the module path runs: GN1 -> Cluster (fc1/fc_v
 -> plain `cluster_mix` -> fc2) -> LayerScale -> +x; GN2 -> Mlp ->
 LayerScale -> +x.  Both paths read the same parameters.
+
+Training runs the module path (plain autograd): the fused halves have no
+backward kernels yet, so a block built with `fused=True` raises in train mode.
 """
 from __future__ import annotations
 
@@ -65,11 +68,11 @@ class Cluster(nn.Module):
 
 class ClusterBlock(nn.Module):
     """GN1 -> Cluster -> LayerScale -> +x; GN1 -> MLP -> LayerScale -> +x
-    (vr_coc.py:226-275).  Inference only: dropout and DropPath are identities.
-    Input and output are NCHW in channels_last memory."""
+    (vr_coc.py:226-275).  Input and output are NCHW in channels_last memory."""
 
-    def __init__(self, dim: int, mlp_ratio: float = 4.0, drop_path: float = 0.0,
-                 layer_scale_init_value: float = 1e-5, proposal_w: int = 2,
+    def __init__(self, dim: int, mlp_ratio: float = 4.0, drop: float = 0.0,
+                 drop_path: float = 0.0, layer_scale_init_value: float = 1e-5,
+                 proposal_w: int = 2,
                  proposal_h: int = 2, fold_w: int = 2, fold_h: int = 2,
                  heads: int = 4, head_dim: int = 24, fused: bool = True):
         super().__init__()
@@ -81,7 +84,7 @@ class ClusterBlock(nn.Module):
         self.token_mixer = Cluster(dim, dim, proposal_w, proposal_h, fold_w,
                                    fold_h, heads, head_dim)
         self.norm2 = GroupNorm1(dim)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
         self.drop_path = DropPath(drop_path)
         self.layer_scale_1 = nn.Parameter(layer_scale_init_value * torch.ones(dim))
         self.layer_scale_2 = nn.Parameter(layer_scale_init_value * torch.ones(dim))
@@ -96,6 +99,10 @@ class ClusterBlock(nn.Module):
         ) and mlp_block_supported(shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.fused and self.training:
+            raise NotImplementedError(
+                "the fused ClusterBlock halves have no backward kernels yet; "
+                "train with ModelConfig(use_pallas_cluster=False)")
         if self.fused_ok(x):
             tm, mlp = self.token_mixer, self.mlp
             y, stats = fused_mixer_block_stats(

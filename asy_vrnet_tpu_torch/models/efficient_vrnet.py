@@ -8,7 +8,8 @@ forward(image NHWC [B,H,W,3], radar NHWC [B,H,W,4]) ->
 Inside, tensors are NCHW in `torch.channels_last` memory, so the NHWC inputs
 and outputs are views, and the ClusterBlock kernels read NHWC tokens without
 copies.  Parameters are f32; `ModelConfig.compute_dtype` sets the activation
-dtype.  Inference only.
+dtype.  `model.train()` switches BatchNorm to batch statistics (and dropout
+on, where a variant has any); training needs `use_pallas_cluster=False`.
 """
 from __future__ import annotations
 
@@ -41,8 +42,6 @@ class EfficientVRNet(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, image: torch.Tensor, radar: torch.Tensor):
-        if self.training:
-            raise NotImplementedError("the port runs inference only; call .eval()")
         dt = self.compute_dtype
         # NHWC -> NCHW view with channels_last strides (no copy when contiguous)
         image = image.to(dt).permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)

@@ -3,9 +3,11 @@
 Tensors are NCHW in `torch.channels_last` memory (NHWC bytes).  Parameters
 stay float32; every op runs in the dtype of its input (bf16 on the card,
 f32 for the CPU parity tests), casting weights at the call like the JAX
-package's `dtype=` modules do.  Inference only: BatchNorm always uses its
-running statistics.  Only the literal (non space-to-depth) branches of the
-JAX layers are ported; the s2d/lane-fold forms are TPU re-layouts.
+package's `dtype=` modules do.  Modules follow `self.training`: BatchNorm
+normalises with batch statistics and updates its running ones, `DropPath` and
+the `Mlp` dropout draw from an explicit `torch.Generator`.  Only the literal
+(non space-to-depth) branches of the JAX layers are ported; the s2d/lane-fold
+forms are TPU re-layouts.
 """
 from __future__ import annotations
 
@@ -66,14 +68,46 @@ def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
 
 
+def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """Training BatchNorm: normalise with the batch statistics (gradients flow
+    through them) and update the running ones in place.
+
+    parity: flax keeps the *biased* batch variance in the running stats
+    (`torch.nn.functional.batch_norm` would store the unbiased one), so the
+    batch-stat form is written out.  Moments are f32, var = E[x^2] - E[x]^2.
+    f32: flax nn.BatchNorm (variance clipped at 0, (x - mean) * mul + bias).
+    bf16: the JAX package's fast form (`layers.py::_s2d_batchnorm`): one
+    x*mul + add in the compute dtype, no clip."""
+    xf = x.float()
+    mean = xf.mean(dim=(0, 2, 3))
+    var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+    shape = (1, -1, 1, 1)
+    if x.dtype == torch.float32:
+        var = var.clamp_min(0.0)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    mul = bn.weight * torch.rsqrt(var + bn.eps)
+    if x.dtype == torch.float32:
+        return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)
+    add = bn.bias - mean * mul
+    return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
+
+
+def batch_norm(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
+    """BatchNorm in the module's mode: batch statistics when training."""
+    return bn_train(x, bn) if bn.training else bn_eval(x, bn)
+
+
 class BatchNorm2d(nn.BatchNorm2d):
-    """Standalone torch-default BatchNorm2d (eps 1e-5), inference form."""
+    """Standalone torch-default BatchNorm2d (eps 1e-5, momentum 0.1)."""
 
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.1):
         super().__init__(channels, eps=eps, momentum=momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return bn_eval(x, self)
+        return batch_norm(x, self)
 
 
 class _DWConv(nn.Module):
@@ -106,7 +140,7 @@ class ConvBnAct(nn.Module):
         self.act = get_activation(act)
 
     def forward(self, x):
-        return self.act(bn_eval(self.conv(x), self.bn))
+        return self.act(batch_norm(self.conv(x), self.bn))
 
 
 class GroupNorm1(nn.GroupNorm):
@@ -125,27 +159,60 @@ class GroupNorm1(nn.GroupNorm):
         return y.to(x.dtype)
 
 
-class Mlp(nn.Module):
-    """1x1-conv MLP with exact GELU (vr_coc.py:195-223); drop is 0 at eval."""
-
-    def __init__(self, cin: int, hidden: int, cout: int):
-        super().__init__()
-        self.fc1 = Conv2d(cin, hidden, 1)
-        self.fc2 = Conv2d(hidden, cout, 1)
-
-    def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+def _bernoulli(shape, keep: float, like: torch.Tensor,
+               generator: torch.Generator | None) -> torch.Tensor:
+    """Boolean keep-mask drawn on `generator`'s device (the default generator
+    of `like`'s device when None)."""
+    dev = like.device if generator is None else generator.device
+    return (torch.rand(shape, generator=generator, device=dev) < keep).to(like.device)
 
 
-class DropPath(nn.Module):
-    """Stochastic depth; the identity at inference (the only mode ported)."""
+class Dropout(nn.Module):
+    """Inverted dropout that follows `self.training` and draws from
+    `self.generator` (set by `set_generator`; None = the default generator)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
+        self.generator: torch.Generator | None = None
+
+    def _mask_shape(self, x: torch.Tensor):
+        return x.shape
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        mask = _bernoulli(self._mask_shape(x), keep, x, self.generator)
+        return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class DropPath(Dropout):
+    """Per-sample stochastic depth (timm DropPath): one draw per sample."""
+
+    def _mask_shape(self, x: torch.Tensor):
+        return (x.shape[0],) + (1,) * (x.dim() - 1)
+
+
+def set_generator(module: nn.Module, generator: torch.Generator | None) -> None:
+    """Make every Dropout / DropPath under `module` draw from `generator`."""
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.generator = generator
+
+
+class Mlp(nn.Module):
+    """1x1-conv MLP with exact GELU and dropout after each conv
+    (vr_coc.py:195-223)."""
+
+    def __init__(self, cin: int, hidden: int, cout: int, drop: float = 0.0):
+        super().__init__()
+        self.fc1 = Conv2d(cin, hidden, 1)
+        self.fc2 = Conv2d(hidden, cout, 1)
+        self.drop = Dropout(drop)
 
     def forward(self, x):
-        return x
+        return self.drop(self.fc2(self.drop(F.gelu(self.fc1(x)))))
 
 
 def eca_kernel_size(channels: int, b: int = 1, gamma: int = 2) -> int:

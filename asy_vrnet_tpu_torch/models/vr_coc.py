@@ -93,15 +93,18 @@ class RadarEnhanceByImage(nn.Module):
 
 
 def _stage(dim: int, i: int, v: CoCVariant, fused: bool) -> nn.Sequential:
+    prior, total = sum(v.layers[:i]), sum(v.layers)
     return nn.Sequential(*[
         ClusterBlock(
-            dim, mlp_ratio=v.mlp_ratios[i],
+            dim, mlp_ratio=v.mlp_ratios[i], drop=v.drop_rate,
+            # stochastic depth grows linearly over the blocks (vr_coc.py:389)
+            drop_path=v.drop_path_rate * (j + prior) / max(total - 1, 1),
             layer_scale_init_value=v.layer_scale_init_value,
             proposal_w=v.proposal_w[i], proposal_h=v.proposal_h[i],
             fold_w=v.fold_w[i], fold_h=v.fold_h[i],
             heads=v.heads[i], head_dim=v.head_dim[i], fused=fused,
         )
-        for _ in range(v.layers[i])
+        for j in range(v.layers[i])
     ])
 
 

@@ -32,6 +32,19 @@ def flatten_level_outputs(det_outputs: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([o.reshape(o.shape[0], -1, o.shape[-1]) for o in det_outputs], 1)
 
 
+def decode_for_loss(det_outputs: Sequence[torch.Tensor], strides: Sequence[float]):
+    """Raw head maps -> absolute-pixel predictions for the YOLOX loss:
+    (outputs (B,A,5+C) with xy/wh decoded and obj/cls raw logits, grid (A,2),
+    stride (A,)); xy=(pred+grid)*stride, wh=exp(pred)*stride
+    (yolo_training.py:99-111)."""
+    level_hw = tuple((o.shape[1], o.shape[2]) for o in det_outputs)
+    out = flatten_level_outputs(det_outputs)
+    grid, svec = make_grids_and_strides(level_hw, strides, out.device)
+    xy = (out[..., :2] + grid) * svec[None, :, None]
+    wh = torch.exp(out[..., 2:4]) * svec[None, :, None]
+    return torch.cat([xy, wh, out[..., 4:]], dim=-1), grid, svec
+
+
 def decode_predictions(det_outputs: Sequence[torch.Tensor],
                        input_hw: tuple[int, int],
                        strides: Sequence[int] = (8, 16, 32)) -> torch.Tensor:
@@ -53,6 +66,32 @@ def decode_predictions(det_outputs: Sequence[torch.Tensor],
 def cxcywh_to_xyxy(b: torch.Tensor) -> torch.Tensor:
     xy, wh = b[..., :2], b[..., 2:4]
     return torch.cat([xy - wh / 2.0, xy + wh / 2.0], dim=-1)
+
+
+def pairwise_iou_cxcywh(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """IoU matrix between (M,4) and (N,4) cxcywh boxes (yolo_training.py:266-289,
+    xyxy=False branch; same epsilon-free denominator)."""
+    tl = torch.maximum(a[:, None, :2] - a[:, None, 2:] / 2, b[None, :, :2] - b[None, :, 2:] / 2)
+    br = torch.minimum(a[:, None, :2] + a[:, None, 2:] / 2, b[None, :, :2] + b[None, :, 2:] / 2)
+    area_a = a[:, 2:].prod(dim=-1)
+    area_b = b[:, 2:].prod(dim=-1)
+    valid = (tl < br).all(dim=-1).to(a.dtype)
+    inter = (br - tl).prod(dim=-1) * valid
+    return inter / (area_a[:, None] + area_b[None, :] - inter)
+
+
+def iou_loss_squared(pred_cxcywh: torch.Tensor, tgt_cxcywh: torch.Tensor) -> torch.Tensor:
+    """Elementwise 1 - iou^2 loss (IOUloss, yolo_training.py:13-57)."""
+    tl = torch.maximum(pred_cxcywh[..., :2] - pred_cxcywh[..., 2:] / 2,
+                       tgt_cxcywh[..., :2] - tgt_cxcywh[..., 2:] / 2)
+    br = torch.minimum(pred_cxcywh[..., :2] + pred_cxcywh[..., 2:] / 2,
+                       tgt_cxcywh[..., :2] + tgt_cxcywh[..., 2:] / 2)
+    area_p = pred_cxcywh[..., 2:].prod(dim=-1)
+    area_g = tgt_cxcywh[..., 2:].prod(dim=-1)
+    valid = (tl < br).all(dim=-1).to(pred_cxcywh.dtype)
+    inter = (br - tl).prod(dim=-1) * valid
+    iou = inter / (area_p + area_g - inter + 1e-16)
+    return 1.0 - iou ** 2
 
 
 def correct_boxes(boxes_xyxy_norm: np.ndarray, input_hw: tuple[int, int],

@@ -1,8 +1,11 @@
 """Build, load and launch the CUDA kernels in `asy_vrnet_tpu_torch/csrc/`.
 
-Each source is compiled by nvcc into a shared library with a plain C
-interface (`-gencode arch=compute_90a,code=sm_90a`), loaded with ctypes, at
-first use; all sources build in parallel.  Libraries land in
+Five sources: the two fused ClusterBlock halves (mixer_block, mlp_block), the
+fused seg-loss forward and backward (seg_loss_sums, seg_loss_dlogits) and
+SimOTA (simota_assign).  Each source is compiled by nvcc into a shared
+library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`),
+loaded with ctypes, at first use; all sources build in parallel.  Libraries
+land in
 `asy_vrnet_tpu_torch/_build/` (listed in .gitignore), named by a hash of the
 sources and flags, so an edit rebuilds.  `-Xptxas -v` output (registers,
 shared memory, spills) is kept beside each library.
@@ -25,19 +28,31 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mixer_block", "mlp_block")
+SOURCES = ("mixer_block", "mlp_block", "seg_loss_sums", "seg_loss_dlogits",
+           "simota_assign")
+HEADERS = ("common.cuh", "seg_loss.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+# SimOTA's results hang on exact ties between costs, so its source is built
+# without FMA contraction: every multiply and add rounds as in the plain
+# PyTorch version it is held against.
+EXTRA_FLAGS = {"simota_assign": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGS = {
     "mixer_block": [_P] * 12 + [_I] * 11 + [_P],
     "mlp_block": [_P] * 7 + [_I] * 4 + [_P],
+    "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
+    "seg_loss_dlogits": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    "simota_assign": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
 }
+# element types each source is instantiated for (entry = "<source>_<suffix>")
+_SUFFIXES = {"simota_assign": ("f32",)}
 
 
 def _nvcc() -> str:
@@ -47,9 +62,13 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple[str, ...]:
+    return NVCC_FLAGS + EXTRA_FLAGS.get(name, ())
+
+
 def _lib_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for f in (f"{name}.cu", "common.cuh"):
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
+    for f in (f"{name}.cu", *HEADERS):
         with open(os.path.join(CSRC, f), "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}.{h.hexdigest()[:12]}.so")
@@ -66,7 +85,7 @@ def build(names=SOURCES) -> dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
+        cmd = [_nvcc(), *_flags(n), "-o", tmp, os.path.join(CSRC, f"{n}.cu")]
         procs[n] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True), tmp)
     errors = []
@@ -98,7 +117,7 @@ def load(name: str) -> ctypes.CDLL:
     with _LOCK:
         if name not in _LIBS:
             lib = ctypes.CDLL(build((name,))[name])
-            for suffix in ("bf16", "f32"):
+            for suffix in _SUFFIXES.get(name, ("bf16", "f32")):
                 fn = getattr(lib, f"{name}_{suffix}")
                 fn.argtypes = _SIGS[name]
                 fn.restype = _I
@@ -151,3 +170,32 @@ def mlp_block(x, stats, w1, b1, w2, b2, out) -> None:
     b, h, w, c = x.shape
     _call("mlp_block", x, _ptr(x), _ptr(stats), _ptr(w1), _ptr(b1), _ptr(w2),
           _ptr(b2), _ptr(out), b, h * w, c, w1.shape[1])
+
+
+def seg_loss_sums(logits, target, weights, part, alpha, gamma, threshold) -> None:
+    """Launch the seg-loss forward kernel; tensors are checked by the caller.
+    `part` is (blocks, 4 + 5*C) f32: one row of partial sums per block."""
+    _call("seg_loss_sums", logits, _ptr(logits), _ptr(target), _ptr(weights),
+          _ptr(part), target.numel(), logits.shape[-1], alpha, gamma, threshold,
+          part.shape[0])
+
+
+def seg_loss_dlogits(logits, target, weights, coef, out, alpha, gamma,
+                     use_focal) -> None:
+    """Launch the seg-loss backward kernel; tensors are checked by the caller."""
+    _call("seg_loss_dlogits", logits, _ptr(logits), _ptr(target), _ptr(weights),
+          _ptr(coef), _ptr(out), target.numel(), logits.shape[-1], alpha, gamma,
+          int(use_focal))
+
+
+def simota_assign(pred_boxes, cls_logits, obj_logits, gt_boxes, gt_classes, gt_valid,
+                  grids, strides, fg_pre, logs, picks, dynamic_ks, fg, matched,
+                  pred_iou, *, center_radius, candidate_k) -> None:
+    """Launch the three SimOTA kernels (prep, rows, resolve) of one batch;
+    tensors are checked by the caller."""
+    b, a, c = cls_logits.shape
+    _call("simota_assign", pred_boxes, _ptr(pred_boxes), _ptr(cls_logits),
+          _ptr(obj_logits), _ptr(gt_boxes), _ptr(gt_classes), _ptr(gt_valid),
+          _ptr(grids), _ptr(strides), _ptr(fg_pre), _ptr(logs), _ptr(picks),
+          _ptr(dynamic_ks), _ptr(fg), _ptr(matched), _ptr(pred_iou), b, a,
+          gt_boxes.shape[1], c, center_radius, candidate_k)

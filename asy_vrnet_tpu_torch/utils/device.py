@@ -16,3 +16,13 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
             "false; pass device='cpu' to run the plain PyTorch path"
         )
     return dev
+
+
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """True when both name one device ("cuda" is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == (cur if b.index is None else b.index)

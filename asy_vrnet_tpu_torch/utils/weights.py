@@ -11,6 +11,13 @@ JAX package's leaf transforms:
   Cluster       sim_alpha/sim_beta () -> (1,)
   BN            scale/bias & mean/var -> weight/bias & running_mean/var
                 (+ a zero `num_batches_tracked`, which flax does not keep)
+
+`train_state_from_flax` carries a whole JAX train state across (weights, BN
+stats, optimiser momentum, log-var, EMA, counters) and `flax_from_train_state`
+goes back for weights, BN stats and EMA.  The JAX optimiser keeps each
+accumulator as ONE flat vector in `ravel_pytree` leaf order (dict keys
+sorted, depth first); `split_flat` cuts it by that order and maps each piece
+like the weight it belongs to.
 """
 from __future__ import annotations
 
@@ -125,7 +132,9 @@ def _to_torch_leaf(leaf_name: str, value: np.ndarray) -> np.ndarray:
 
 
 def _walk(tree: Mapping[str, Any], path=()) -> Iterator[tuple[tuple[str, ...], Any]]:
-    for k, v in tree.items():
+    """Leaves depth first with sorted keys: JAX's pytree leaf order."""
+    for k in sorted(tree):
+        v = tree[k]
         if isinstance(v, Mapping):
             yield from _walk(v, path + (k,))
         else:
@@ -165,3 +174,87 @@ def load_npz(path: str) -> tuple[dict, dict]:
 def load_npz_into(model: torch.nn.Module, path: str) -> None:
     """Strictly load a weights-only npz into a port model."""
     model.load_state_dict(state_dict_from_flax(*load_npz(path)), strict=True)
+
+
+def _shape(leaf) -> tuple[int, ...]:
+    """Shape of an array or of anything that only describes one."""
+    return tuple(leaf.shape) if hasattr(leaf, "shape") else np.shape(leaf)
+
+
+def split_flat(vec: np.ndarray, params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """One flat per-parameter vector in the JAX leaf order of `params` ->
+    {port key: tensor shaped and laid out like that port parameter}."""
+    vec = np.asarray(vec)
+    out: dict[str, torch.Tensor] = {}
+    offset = 0
+    for path, leaf in _walk(params):
+        shape = _shape(leaf)
+        n = int(np.prod(shape, dtype=np.int64))
+        piece = vec[offset:offset + n].reshape(shape)
+        out[torch_key_for(path)] = torch.from_numpy(_to_torch_leaf(path[-1], piece))
+        offset += n
+    if offset != vec.size:
+        raise ValueError(f"flat vector has {vec.size} entries, the parameters {offset}")
+    return out
+
+
+def _from_torch_leaf(leaf_name: str, value: torch.Tensor, shape) -> np.ndarray:
+    """Inverse of `_to_torch_leaf`, into the flax leaf's `shape`."""
+    value = value.detach().cpu().numpy().astype(np.float32)
+    if leaf_name == "kernel" and value.ndim == 4:
+        value = np.transpose(value, (2, 3, 1, 0))
+    return np.array(value.reshape(shape), order="C")   # keeps 0-d leaves 0-d
+
+
+def flax_from_state_dict(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict:
+    """Port tensors by state_dict key -> a nested flax dict with the structure
+    and leaf shapes of `like`: a tree of arrays (the `params` of `load_npz`)
+    or of shape descriptions (anything with `.shape`)."""
+    out: dict = {}
+    for path, leaf in _walk(like):
+        node = out
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = _from_torch_leaf(path[-1], sd[torch_key_for(path)], _shape(leaf))
+    return out
+
+
+def train_state_from_flax(state, params, batch_stats, opt_state_flat: Mapping[str, Any],
+                          log_var, ema_params, ema_batch_stats, ema_updates, step) -> None:
+    """Load a JAX train state (numpy arrays) into the port's `TrainState`, in
+    place.  `opt_state_flat` holds the optimiser's flat accumulators:
+    {"trace": v} for SGD, {"mu": m, "nu": v, "count": n} for Adam."""
+    model, opt = state.model, state.optimizer
+    dev = next(model.parameters()).device
+    model.load_state_dict(state_dict_from_flax(params, batch_stats), strict=True)
+    ema = state_dict_from_flax(ema_params, ema_batch_stats)
+    with torch.no_grad():
+        for k, v in state.ema.items():
+            v.copy_(ema[k])
+        state.log_var.copy_(torch.from_numpy(np.array(log_var, np.float32)))
+    state.ema_updates = float(ema_updates)
+    state.step = int(step)
+
+    named = dict(model.named_parameters())
+    if isinstance(opt, torch.optim.SGD):
+        fields = {"momentum_buffer": "trace"}
+    elif isinstance(opt, torch.optim.Adam):
+        fields = {"exp_avg": "mu", "exp_avg_sq": "nu"}
+    else:
+        raise TypeError(f"no bridge for optimiser {type(opt).__name__}")
+    for port_field, flax_field in fields.items():
+        for key, piece in split_flat(opt_state_flat[flax_field], params).items():
+            opt.state[named[key]][port_field] = piece.to(dev)
+    if isinstance(opt, torch.optim.Adam):
+        for p in named.values():
+            opt.state[p]["step"] = torch.tensor(float(opt_state_flat["count"]))
+
+
+def flax_from_train_state(state, like_params, like_batch_stats) -> dict:
+    """The port's weights, BN stats and their EMA as nested flax dicts
+    (structure taken from `like_params` / `like_batch_stats`)."""
+    live = state.model.state_dict()
+    return {"params": flax_from_state_dict(live, like_params),
+            "batch_stats": flax_from_state_dict(live, like_batch_stats),
+            "ema_params": flax_from_state_dict(state.ema, like_params),
+            "ema_batch_stats": flax_from_state_dict(state.ema, like_batch_stats)}

@@ -20,7 +20,21 @@ Phases (each raises on failure; nothing is caught):
      class).  r05 reached AP50 0.97 on its own 48 training images; these
      are new layouts;
   5. times each kernel per shape, its plain twin and its bound, the full
-     forward at batch 8 and 32, and peak memory.
+     forward at batch 8 and 32, and peak memory;
+  6. kernels, training: the fused seg-loss forward and backward kernels
+     against their plain twins at (16, 512, 512, 9), bf16 and f32, focal+dice
+     and CE-only, with and without class weights, ~10% ignored pixels; the
+     SimOTA kernel against its twin at B = 16, A = 5376, G = 100 with 0, 1, 7
+     and 100 valid GTs, on the r05 model's head outputs plus seeded noise, and
+     on a constructed case with duplicated GT boxes and duplicated anchors;
+  7. train path: r05 weights, `create_train_state`, 5 steps on seeded
+     `make_batch` batches at 512^2, batch 16, bf16, module-path blocks, lr
+     from `adaptive_lr`; launch counters reset before the first step and read
+     after it (seg_loss_sums 1, seg_loss_dlogits 1, simota_assign >= 1, the
+     block kernels 0); losses finite, num_fg > 0, parameters, EMA and BN
+     running stats moved; the same first step through the plain twins from
+     the same start; a 30-step overfit of one 128^2 batch in f32; step time,
+     images/s, peak memory, device-busy share and launches per step.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -36,10 +50,25 @@ Tolerances:
     and flipped assignments compound through 27 blocks).
   128^2 f32 forward, card vs CPU: atol = rtol = 2e-3 (f32 kernels and f32
     cuDNN with TF32 off against the CPU's plain path through ~90 layers).
-Bounds: max(flops / 989 TFLOP/s bf16, bytes / 3.35 TB/s), flops and bytes
-counted from this run's shapes (each input read once, each output written
-once).  No PyTorch library call computes either fused half: library_ms null.
+  seg-loss sums vs plain: rtol 1e-5 in f32 (1e-4 on bf16 logits; both read
+    the same logits and compute in f32), thresholded counts within 8 pixels,
+    the loss within 1e-3 relative; two runs give equal bits.  dlogits: f32
+    max |diff| <= 1e-6 * max(1, max |dlogits|), bf16 within 2 bf16 ulps of
+    max |dlogits|.
+  SimOTA vs plain: exact on the constructed ties and on images with 0 or 1
+    GT; otherwise fg agreement >= 99.9% of anchors, matched GT equal where
+    both are fg, IoU atol 1e-5, num_fg within 1% (libm's last ulp can flip a
+    near-tie).
+  train step, kernels vs plain twins: loss, loss_det, loss_seg within 2%
+    relative, num_fg within 1%.
+Bounds: max(flops / peak, bytes / 3.35 TB/s), flops and bytes counted from
+this run's shapes and data (each input read once, each output written once).
+The peak is 989 TFLOP/s (dense bf16 tensor cores) for the two block kernels
+and 67 TFLOP/s (f32 on CUDA cores; NVIDIA's H100 SXM data sheet) for the
+seg-loss and SimOTA kernels, which have no matrix product.  No single PyTorch
+call computes any of the five kernels: library_ms is null.
 """
+import copy
 import json
 import os
 import subprocess
@@ -47,6 +76,7 @@ import sys
 import time
 
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
+PEAK_FLOPS_F32 = 67e12  # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12    # H100 SXM HBM3 bandwidth
 R05 = os.path.join("model_data", "convergence_tpu_r05", "logs_512c", "best_epoch_weights.npz")
 
@@ -66,6 +96,15 @@ KERNELS = {
     "mlp_block": dict(source="asy_vrnet_tpu_torch/csrc/mlp_block.cu",
                       replaces="asy_vrnet_tpu/ops/block_pallas.py:2022"),
 }
+TRAIN_KERNELS = {
+    "seg_loss_sums": dict(source="asy_vrnet_tpu_torch/csrc/seg_loss_sums.cu",
+                          replaces="asy_vrnet_tpu/ops/losses_seg_pallas.py:167"),
+    "seg_loss_dlogits": dict(source="asy_vrnet_tpu_torch/csrc/seg_loss_dlogits.cu",
+                             replaces="asy_vrnet_tpu/ops/losses_seg_pallas.py:204"),
+    "simota_assign": dict(source="asy_vrnet_tpu_torch/csrc/simota_assign.cu",
+                          replaces="asy_vrnet_tpu/ops/simota_pallas.py:154"),
+}
+TRAIN_BATCH, SEG_CLASSES, MAX_BOXES = 16, 9, 100
 
 
 def log(msg):
@@ -107,9 +146,36 @@ def mlp_bounds(b, h, w, c, hid):
     return 4 * t * c * hid, 2 * t * c * 2 + 2 * c * hid * 2
 
 
-def bound_ms(flops, byts):
-    tf, tb = flops / PEAK_FLOPS, byts / PEAK_BYTES
+def bound_ms(flops, byts, peak=PEAK_FLOPS):
+    tf, tb = flops / peak, byts / PEAK_BYTES
     return max(tf, tb) * 1e3, ("operations" if tf >= tb else "bytes")
+
+
+def seg_bounds(npix, c, itemsize, backward):
+    """~30 f32 operations per logit (the TPU kernel's own estimate); bytes:
+    logits in (and dlogits out), the int32 target."""
+    return 30 * npix * c, npix * (c * itemsize * (2 if backward else 1) + 4)
+
+
+def simota_bounds(b, a, g, c, k, valid_rows, dyn_k_sum):
+    """Operations this run's data needs: per (image, anchor) the prefilter
+    over G boxes and 2*C clamped logs; per VALID (GT, anchor) pair the IoU and
+    cost (~30 + 4*C); 4 per element and round for the k IoU rounds and the
+    dynamic-k cost rounds each valid row ran.  Bytes: inputs and outputs."""
+    flops = (b * a * (6 * g + 12 * c) + valid_rows * a * (30 + 4 * c)
+             + 4 * a * (valid_rows * k + dyn_k_sum))
+    byts = 4 * (b * a * (4 + c + 1) + b * g * 6 + a * 3) + b * a * 9
+    return flops, byts
+
+
+def rel_diff(a, b):
+    return abs(a - b) / max(abs(b), 1e-12)
+
+
+def bf16_ulp(x):
+    import math
+
+    return 2.0 ** (math.floor(math.log2(x)) - 7)
 
 
 def learnable_request(rng):
@@ -151,6 +217,9 @@ def iou(a, b):
 CATEGORIES = (
     ("mixer_block (ours)", ("mixer_block",)),
     ("mlp_block (ours)", ("mlp_block",)),
+    ("seg_loss (ours)", ("seg_loss",)),
+    ("simota (ours)", ("simota",)),
+    ("optimiser / EMA", ("multi_tensor", "foreach")),
     ("convolution", ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "sm90_")),
     ("gemm", ("gemm", "cutlass")),
     ("resize", ("upsample", "interpolat")),
@@ -159,21 +228,20 @@ CATEGORIES = (
 )
 
 
-def profile_forward(model, image, radar, reps=3):
-    """torch.profiler over `reps` forwards: host wall time, device busy time,
-    device time by category and the top kernels (per forward)."""
+def profile_calls(fn, reps=3):
+    """torch.profiler over `reps` calls of fn(): host wall time, device busy
+    time, device time by category and the top kernels (per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad():
-        model(image, radar)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                model(image, radar)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / reps
+        wall = (time.perf_counter() - t0) * 1e3 / reps
     kernels = {}
     for e in prof.events():
         if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
@@ -197,6 +265,61 @@ def profile_forward(model, image, radar, reps=3):
             "top": [(name[:90], t, n // reps) for name, (t, n) in top]}
 
 
+def profile_forward(model, image, radar, reps=3):
+    import torch
+
+    with torch.no_grad():
+        return profile_calls(lambda: model(image, radar), reps)
+
+
+def reset_launches(*modules):
+    for m in modules:
+        for k in m.LAUNCHES:
+            m.LAUNCHES[k] = 0
+
+
+def gt_rows(rng, valid_counts, g, size, classes):
+    """Padded GT (B,G,4) cxcywh pixels, classes (B,G) and validity (B,G)."""
+    import numpy as np
+
+    b = len(valid_counts)
+    gb = np.zeros((b, g, 4), np.float32)
+    gv = np.zeros((b, g), bool)
+    for i, n in enumerate(valid_counts):
+        gb[i, :n] = np.concatenate([rng.uniform(32, size - 32, (n, 2)),
+                                    rng.uniform(24, 160, (n, 2))], -1)
+        gv[i, :n] = True
+    return gb, rng.integers(0, classes, (b, g)).astype(np.int32), gv
+
+
+def compare_simota(tag, simota_fused, args, exact):
+    """Kernel against plain twin on the same tensors -> (agreement, dyn-k sum,
+    valid rows, max IoU error).  `exact` lists the images that must agree
+    bit for bit in fg and matched GT."""
+    import torch
+
+    ker, kdyn = simota_fused.simota_assign_batched(*args, return_dynamic_ks=True)
+    torch.cuda.synchronize()
+    ref, rdyn = simota_fused.simota_assign_batched(*args, use_kernel=False,
+                                                   return_dynamic_ks=True)
+    agree = (ker.fg_mask == ref.fg_mask).float().mean().item()
+    both = ker.fg_mask & ref.fg_mask
+    match_equal = bool(torch.equal(ker.matched_gt[both], ref.matched_gt[both]))
+    iou_err = ((ker.pred_iou - ref.pred_iou).abs() * both).max().item()
+    nk, nr = ker.num_fg.sum().item(), ref.num_fg.sum().item()
+    dyn_agree = (kdyn == rdyn).float().mean().item()
+    log(f"[check simota_assign {tag}] fg agreement {agree:.6f}, matched GT equal on "
+        f"common fg {match_equal}, max IoU diff {iou_err:.3e}, num_fg {nk:.0f} vs "
+        f"{nr:.0f}, dynamic-k agreement {dyn_agree:.6f}")
+    check(agree >= 0.999 and match_equal and iou_err <= 1e-5, f"simota {tag}")
+    check(abs(nk - nr) <= 0.01 * max(nr, 1.0), f"simota num_fg {tag}")
+    for i in exact:
+        check(bool(torch.equal(ker.fg_mask[i], ref.fg_mask[i]))
+              and bool(torch.equal(ker.matched_gt[i], ref.matched_gt[i])),
+              f"simota {tag}: image {i} must agree exactly")
+    return agree, int(kdyn.sum().item()), int(args[5].sum().item()), iou_err
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -208,11 +331,17 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     os.chdir(here)
-    from asy_vrnet_tpu_torch.config import ModelConfig
+    from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.data.synthetic import make_batch
     from asy_vrnet_tpu_torch.infer.predictor import Detector
     from asy_vrnet_tpu_torch.models.cluster_block import ClusterBlock
     from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
-    from asy_vrnet_tpu_torch.ops import block, kernels
+    from asy_vrnet_tpu_torch.ops import block, kernels, simota_fused
+    from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
+    from asy_vrnet_tpu_torch.ops.boxes import decode_for_loss
+    from asy_vrnet_tpu_torch.train.optim import adaptive_lr, set_learning_rate
+    from asy_vrnet_tpu_torch.train.state import create_train_state, float_state
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -440,12 +569,239 @@ def main() -> int:
             log(f"[forward bs={bs} top] {v:.4f} ms x{n} {name}")
         del bi, br
 
+
+    # ---- 6. kernels, training: seg loss (sums, dlogits) and SimOTA ----
+    f32 = torch.float32
+    npix, c9 = TRAIN_BATCH * 512 * 512, SEG_CLASSES
+    gen = torch.Generator().manual_seed(6)
+    seg32 = torch.randn(TRAIN_BATCH, 512, 512, c9, generator=gen) * 2
+    seg_t = torch.randint(0, c9, (TRAIN_BATCH, 512, 512), generator=gen, dtype=torch.int32)
+    seg_t[torch.rand(seg_t.shape, generator=gen) < 0.1] = c9        # ~10% ignored
+    seg_t = seg_t.to(dev)
+    class_w = {"weighted": torch.linspace(0.5, 2.0, c9).to(dev), "plain": torch.ones(c9).to(dev)}
+    train_stats = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS}
+    hyper = (0.5, 2.0, 0.5)                                          # alpha, gamma, threshold
+    for dt in (f32, torch.bfloat16):
+        lg = seg32.to(dev, dt)
+        for wname, w in class_w.items():
+            acc = segf.seg_loss_sums(lg, seg_t, w, *hyper)
+            again = segf.seg_loss_sums(lg, seg_t, w, *hyper)
+            torch.cuda.synchronize()
+            ref = segf.seg_sums_plain(lg, seg_t, w, *hyper)
+            check(bool(torch.equal(acc, again)), "seg_loss_sums gives the same bits twice")
+            smooth, counts = slice(0, 4 + 3 * c9), slice(4 + 3 * c9, 4 + 5 * c9)
+            rerr = ((acc - ref).abs() / ref.abs().clamp_min(1.0))[smooth].max().item()
+            cerr = (acc - ref).abs()[counts].max().item()
+            log(f"[check seg_loss_sums {str(dt)[6:]} {wname}] max rel diff of the sums "
+                f"{rerr:.3e}, thresholded counts differ by <= {cerr:.0f} pixels")
+            check(rerr <= (1e-5 if dt == f32 else 1e-4) and cerr <= 8, "seg_loss_sums")
+            for mode, use_focal, use_dice in (("focal+dice", True, True), ("ce", False, False)):
+                args = (c9, use_focal, use_dice, 1.0, 1e-5, 1.0, 1e-5)
+                (lk, fk), (lp, fp) = segf._losses_from_acc(acc, *args), \
+                    segf._losses_from_acc(ref, *args)
+                coef = segf._backward_coef(ref, torch.tensor(float(npix), device=dev), c9,
+                                           use_focal, use_dice, 1.0, 1e-5)
+                dk = segf.seg_loss_dlogits(lg, seg_t, w, coef, 0.5, 2.0, use_focal)
+                torch.cuda.synchronize()
+                dp = segf.seg_dlogits_plain(lg, seg_t, w, coef, 0.5, 2.0, use_focal)
+                derr = (dk.float() - dp.float()).abs().max().item()
+                dmax = dp.float().abs().max().item()
+                log(f"[check seg loss {str(dt)[6:]} {wname} {mode}] loss {lk.item():.6f} vs "
+                    f"{lp.item():.6f}, f_score {fk.item():.6f} vs {fp.item():.6f}; dlogits "
+                    f"(cotangent {npix}) max|diff| {derr:.3e} max|dlogits| {dmax:.3e}")
+                check(rel_diff(lk.item(), lp.item()) <= 1e-3 and rel_diff(fk.item(), fp.item()) <= 1e-3,
+                      "seg loss value")
+                check(derr <= (1e-6 * max(1.0, dmax) if dt == f32 else 2 * bf16_ulp(dmax)),
+                      "seg_loss_dlogits")
+                if dt == torch.bfloat16:
+                    train_stats["seg_loss_sums"]["max_abs_err"] = max(
+                        train_stats["seg_loss_sums"]["max_abs_err"], abs(lk.item() - lp.item()))
+                    train_stats["seg_loss_dlogits"]["max_abs_err"] = max(
+                        train_stats["seg_loss_dlogits"]["max_abs_err"], derr)
+    seg_bf16 = seg32.to(dev, torch.bfloat16)
+    w9 = class_w["plain"]
+    coef = segf._backward_coef(segf.seg_sums_plain(seg_bf16, seg_t, w9, *hyper),
+                               torch.tensor(1.0, device=dev), c9, True, True, 1.0, 1e-5)
+    seg_fns = {
+        "seg_loss_sums": (lambda: segf.seg_loss_sums(seg_bf16, seg_t, w9, *hyper),
+                          lambda: segf.seg_sums_plain(seg_bf16, seg_t, w9, *hyper), False),
+        "seg_loss_dlogits": (
+            lambda: segf.seg_loss_dlogits(seg_bf16, seg_t, w9, coef, 0.5, 2.0, True),
+            lambda: segf.seg_dlogits_plain(seg_bf16, seg_t, w9, coef, 0.5, 2.0, True), True),
+    }
+    for kname, (fk, fp, backward) in seg_fns.items():
+        ms, pms = cuda_ms(fk, 20), cuda_ms(fp, 3, warmup=1)
+        bms, by = bound_ms(*seg_bounds(npix, c9, 2, backward), peak=PEAK_FLOPS_F32)
+        log(f"[time {kname} bf16 (16,512,512,9)] kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+            f"bound {bms:.5f} ms ({by})")
+        train_stats[kname].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    del seg32, seg_bf16, seg_fns
+
+    # SimOTA on the r05 head's outputs for seeded images, plus seeded noise
+    rng6 = np.random.default_rng(6)
+    probe = make_batch(rng6, TRAIN_BATCH, (512, 512), max_boxes=MAX_BOXES)
+    with torch.no_grad():
+        det16, _ = model(torch.from_numpy(probe["image"]).to(dev),
+                         torch.from_numpy(probe["radar"]).to(dev))
+        outs, grids, svec = decode_for_loss(det16, (8, 16, 32))
+    outs = outs.float()
+    noise = torch.from_numpy(rng6.normal(0, 0.5, outs[..., 4:].shape).astype(np.float32)).to(dev)
+    pred_boxes = outs[..., :4].contiguous()
+    obj_logits = (outs[..., 4] + noise[..., 0]).contiguous()
+    cls_logits = (outs[..., 5:] + noise[..., 1:]).contiguous()
+    gb, gc, gv = (torch.from_numpy(x).to(dev) for x in gt_rows(
+        rng6, [0, 1, 7, 100] * 4, MAX_BOXES, 512, cfg.num_classes))
+    sim_args = [pred_boxes, cls_logits, obj_logits, gb, gc, gv, grids, svec]
+    n_anchor = pred_boxes.shape[1]
+    check(tuple(pred_boxes.shape) == (TRAIN_BATCH, 5376, 4), "A = 5376 at 512^2")
+    agree, dyn_sum, valid_rows, iou_err = compare_simota(
+        "r05 head, 0/1/7/100 GTs x4", simota_fused, sim_args, exact=[0, 1, 4, 5, 8, 9, 12, 13])
+    tie = [t[[2, 6]].clone() for t in sim_args[:6]] + [grids, svec]  # two 7-GT images
+    for i in range(2):
+        tie[3][i, 2], tie[4][i, 2] = tie[3][i, 1], tie[4][i, 1]      # duplicated GT
+        tie[0][i, :4096] = tie[3][i, 1]                              # duplicated anchors
+        tie[1][i, :4096] = tie[1][i, 0]
+        tie[2][i, :4096] = tie[2][i, 0]
+    compare_simota("constructed ties", simota_fused, tie, exact=[0, 1])
+    ms = cuda_ms(lambda: simota_fused.simota_assign_batched(*sim_args), 20)
+    pms = cuda_ms(lambda: simota_fused.simota_assign_batched(*sim_args, use_kernel=False), 1,
+                  warmup=1)
+    bms, by = bound_ms(*simota_bounds(TRAIN_BATCH, n_anchor, MAX_BOXES, cfg.num_classes, 10,
+                                      valid_rows, dyn_sum), peak=PEAK_FLOPS_F32)
+    log(f"[time simota_assign B=16 A={n_anchor} G={MAX_BOXES}, {valid_rows} valid rows, "
+        f"dynamic-k sum {dyn_sum}] kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
+        f"{bms:.5f} ms ({by})")
+    train_stats["simota_assign"].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                                        max_abs_err=iou_err, fg_agreement=agree)
+    del sim_args, tie, outs, det16
+
+    # ---- 7. train path: r05 weights, 512^2, batch 16, bf16, 5 steps ----
+    tcfg = Config(
+        model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+                          input_size=(512, 512), seg_signed_logits=True,
+                          use_pallas_cluster=False),
+        loss=LossConfig(max_boxes=MAX_BOXES, use_pallas_seg=True))
+    state = create_train_state(tcfg, weights=R05)                    # the card by default
+    lr, _ = adaptive_lr(tcfg.optim, TRAIN_BATCH)
+    set_learning_rate(state.optimizer, lr)
+    train_step = build_train_step(tcfg)                              # the card by default
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        np.random.default_rng(70 + i), TRAIN_BATCH, (512, 512), max_boxes=MAX_BOXES).items()}
+        for i in range(5)]
+    start = copy.deepcopy(state)
+    before = {k: v.clone() for k, v in float_state(state.model).items()}
+    ema_before = {k: v.clone() for k, v in state.ema.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(block, segf, simota_fused)
+    state, first = train_step(state, batches[0])
+    torch.cuda.synchronize()
+    train_launches = {**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}
+    log(f"[train path] launches in one step {train_launches}")
+    check(train_launches == {"mixer_block": 0, "mlp_block": 0, "seg_loss_sums": 1,
+                             "seg_loss_dlogits": 1, "simota_assign": 1}, train_launches)
+    history = [{k: float(v) for k, v in first.items()}]
+    for b in batches[1:]:
+        state, m = train_step(state, b)
+        history.append({k: float(v) for k, v in m.items()})
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    for i, m in enumerate(history):
+        log(f"[train path] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+        check(all(np.isfinite(v) for v in m.values()) and m["num_fg"] > 0, f"step {i + 1}")
+    after = float_state(state.model)
+    moved = lambda keys, a, b: sum(not torch.equal(a[k], b[k]) for k in keys)  # noqa: E731
+    names = [n for n, _ in state.model.named_parameters()]
+    stats = [k for k in before if k.endswith(("running_mean", "running_var"))]
+    log(f"[train path] moved: {moved(names, before, after)}/{len(names)} parameters, "
+        f"{moved(stats, before, after)}/{len(stats)} BN running stats, "
+        f"{moved(list(ema_before), ema_before, state.ema)}/{len(ema_before)} EMA entries; "
+        f"step {state.step}, ema_updates {state.ema_updates}, lr {lr}")
+    still = [k for k in names if torch.equal(before[k], after[k])]
+    log(f"[train path] parameters that kept their bits: {still}")
+    # a few decay-free entries rightly stay: their update lr * grad is below
+    # one f32 ulp of the value (norm weights and alpha behind a LayerScale of
+    # ~1e-5, a conv bias in front of a batch-stat BatchNorm)
+    check(moved(names, before, after) >= 0.9 * len(names), "the parameters moved")
+    check(moved(stats, before, after) == len(stats), "every BN running stat moved")
+    check(moved(list(ema_before), ema_before, state.ema) >= 0.9 * len(ema_before),
+          "the EMA moved")
+    check(state.step == 5 and state.ema_updates == 5.0, "counters")
+    del before, ema_before
+
+    # the same first step through the plain twins, from the same start
+    swapped = (segf.seg_loss_sums, segf.seg_loss_dlogits, simota_fused._kernel_batched)
+    segf.seg_loss_sums, segf.seg_loss_dlogits = segf.seg_sums_plain, segf.seg_dlogits_plain
+    simota_fused._kernel_batched = simota_fused._plain_batched
+    reset_launches(block, segf, simota_fused)
+    try:
+        _, plain_first = train_step(start, batches[0])
+        torch.cuda.synchronize()
+    finally:
+        segf.seg_loss_sums, segf.seg_loss_dlogits, simota_fused._kernel_batched = swapped
+    check(not any({**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}.values()),
+          "the plain step launched no kernel")
+    for k, v in history[0].items():
+        pv = float(plain_first[k])
+        log(f"[train path vs plain] {k}: {v:.6f} vs {pv:.6f}")
+        check(rel_diff(v, pv) <= (0.01 if k == "num_fg" else 0.02), f"first step {k}")
+    del start
+
+    # overfit one fixed 128^2 batch, f32, 30 steps
+    ocfg = Config(
+        model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="float32",
+                          input_size=(128, 128), seg_signed_logits=True,
+                          use_pallas_cluster=False),
+        loss=LossConfig(max_boxes=16, use_pallas_seg=True))
+    ostate = create_train_state(ocfg, weights=R05)
+    set_learning_rate(ostate.optimizer, adaptive_lr(ocfg.optim, 4)[0])
+    ostep = build_train_step(ocfg)
+    obatch = make_batch(np.random.default_rng(8), 4, (128, 128))
+    olosses = []
+    for _ in range(30):
+        ostate, m = ostep(ostate, obatch)
+        olosses.append(float(m["loss"]))
+    log(f"[overfit 128^2 f32, 30 steps] loss {olosses[0]:.4f} -> {olosses[-1]:.4f} "
+        f"(min {min(olosses):.4f})")
+    check(all(np.isfinite(olosses)) and olosses[-1] < olosses[0], "overfit loss falls")
+    del ostate
+
+    # step time, images/s, device-busy share, launches per step
+    def one_step():
+        train_step(state, batches[0])
+
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        one_step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / 5
+    tp = profile_calls(one_step, reps=2)
+    train = {"batch": TRAIN_BATCH, "step_ms": step_ms,
+             "images_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_gib": train_peak,
+             "profile": tp, "history": history, "overfit": [olosses[0], olosses[-1]]}
+    log(f"[train step bs={TRAIN_BATCH}] {step_ms:.2f} ms, {train['images_per_s']:.1f} images/s, "
+        f"peak memory {train_peak:.3f} GiB; profiled: wall {tp['wall_ms']:.2f} ms, device busy "
+        f"{tp['device_ms']:.2f} ms ({tp['busy_share']:.3f}), {tp['launches']} kernel launches")
+    for cat, v in tp["by_category_ms"].items():
+        log(f"[train step device ms] {cat}: {v:.4f}")
+    for name, v, n in tp["top"]:
+        log(f"[train step top] {v:.4f} ms x{n} {name}")
+    for kname in TRAIN_KERNELS:
+        st = train_stats[kname]
+        report.append({"name": kname, "route": "cuda", **TRAIN_KERNELS[kname],
+                       "launches": train_launches[kname], "max_abs_err": st["max_abs_err"],
+                       "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                       "bound_by": st["bound_by"], "library_ms": None})
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     log(f"[total] {time.time() - t_start:.1f} s")
-    print(json.dumps({"forward": fwd, "mixer_assignment_agreement_bf16":
-                      stats_out["mixer_block"].get("agreement")}), flush=True)
+    print(json.dumps({"forward": fwd, "train": train, "mixer_assignment_agreement_bf16":
+                      stats_out["mixer_block"].get("agreement"),
+                      "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"]}),
+          flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,10 +16,11 @@ Tolerances:
     2% of max |y| (y = out - x), max |diff| <= max |y| + 2 bf16 ulps; the MLP
     half (no assignments) within 2 bf16 ulps of max |out|.
 """
+import numpy as np
 import pytest
 import torch
 
-from asy_vrnet_tpu_torch.ops import block
+from asy_vrnet_tpu_torch.ops import block, boxes, losses_seg_fused, simota_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -139,3 +140,143 @@ def test_model_on_card_matches_cpu(dev):
     for a, b in zip(det_c, det_g):
         torch.testing.assert_close(b.cpu(), a, atol=1e-3, rtol=1e-3)
     torch.testing.assert_close(seg_g.cpu(), seg_c, atol=1e-3, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels: fused seg loss (sums, dlogits) and SimOTA
+# ---------------------------------------------------------------------------
+
+def _seg_inputs(dev, dt, shape=(16, 512, 512), c=9, seed=0, weighted=True):
+    g = torch.Generator().manual_seed(seed)
+    logits = (torch.randn(*shape, c, generator=g) * 2).to(dev, dt)
+    target = torch.randint(0, c, shape, generator=g, dtype=torch.int32)
+    target[torch.rand(shape, generator=g) < 0.1] = c             # ~10% ignored
+    w = torch.linspace(0.5, 2.0, c) if weighted else torch.ones(c)
+    return logits, target.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "plain"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_seg_loss_sums_kernel_matches_plain(dev, dt, weighted):
+    logits, target, w = _seg_inputs(dev, dt, weighted=weighted)
+    before = losses_seg_fused.LAUNCHES["seg_loss_sums"]
+    acc = losses_seg_fused.seg_loss_sums(logits, target, w, 0.5, 2.0, 0.5)
+    again = losses_seg_fused.seg_loss_sums(logits, target, w, 0.5, 2.0, 0.5)
+    torch.cuda.synchronize()
+    assert losses_seg_fused.LAUNCHES["seg_loss_sums"] == before + 2
+    assert torch.equal(acc, again)                       # no float atomics
+    ref = losses_seg_fused.seg_sums_plain(logits, target, w, 0.5, 2.0, 0.5)
+    c = 9
+    counts = slice(4 + 3 * c, 4 + 5 * c)                 # tp_f and sum_pred
+    rtol = 1e-5 if dt == torch.float32 else 1e-4
+    torch.testing.assert_close(acc[:4 + 3 * c], ref[:4 + 3 * c], rtol=rtol, atol=1e-3)
+    torch.testing.assert_close(acc[counts], ref[counts], rtol=0, atol=8)
+    for use_focal in (True, False):
+        got = losses_seg_fused._losses_from_acc(acc, c, use_focal, True, 1.0, 1e-5, 1.0, 1e-5)
+        want = losses_seg_fused._losses_from_acc(ref, c, use_focal, True, 1.0, 1e-5, 1.0, 1e-5)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=0)
+
+
+@pytest.mark.parametrize("use_focal", [True, False], ids=["focal", "ce"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_seg_loss_dlogits_kernel_matches_plain(dev, dt, use_focal):
+    logits, target, w = _seg_inputs(dev, dt, seed=1)
+    c = 9
+    acc = losses_seg_fused.seg_sums_plain(logits, target, w, 0.5, 2.0, 0.5)
+    coef = losses_seg_fused._backward_coef(acc, torch.tensor(3e5, device=dev), c, use_focal,
+                                           True, 1.0, 1e-5)
+    before = losses_seg_fused.LAUNCHES["seg_loss_dlogits"]
+    dl = losses_seg_fused.seg_loss_dlogits(logits, target, w, coef, 0.5, 2.0, use_focal)
+    torch.cuda.synchronize()
+    assert losses_seg_fused.LAUNCHES["seg_loss_dlogits"] == before + 1
+    ref = losses_seg_fused.seg_dlogits_plain(logits, target, w, coef, 0.5, 2.0, use_focal)
+    assert dl.dtype == dt and dl.shape == logits.shape
+    diff = (dl.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert scale > 1e-3
+    if dt == torch.float32:
+        assert diff <= 1e-6 * max(1.0, scale)
+    else:
+        assert diff <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("use_focal", [True, False], ids=["focal", "ce"])
+def test_fused_seg_loss_gradient_matches_autograd_of_the_oracle(dev, use_focal):
+    """The autograd.Function (kernels forward and backward, f32) against
+    autograd through the unfused losses on the card: value rtol 1e-5,
+    gradient atol 1e-6 * max(1, max |grad| * npix) / npix."""
+    logits, target, w = _seg_inputs(dev, torch.float32, shape=(2, 128, 128), seed=2)
+    out = []
+    for fused in (True, False):
+        lg = logits.clone().requires_grad_(True)
+        loss, fs = losses_seg_fused.fused_seg_loss_and_fscore(
+            lg, target, w, 9, use_focal=use_focal, use_kernel=fused)
+        (loss * 1e4).backward()
+        out.append((loss.detach(), fs.detach(), lg.grad))
+    torch.testing.assert_close(out[0][0], out[1][0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(out[0][1], out[1][1], rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(out[0][2], out[1][2], rtol=1e-4, atol=1e-6)
+
+
+def _simota_inputs(dev, valid_counts, seed=0, g=100, size=512, c=4):
+    rng = np.random.default_rng(seed)
+    level_hw = tuple((size // s, size // s) for s in (8, 16, 32))
+    grids, strides = boxes.make_grids_and_strides(level_hw, (8, 16, 32))
+    grids, strides = grids.numpy(), strides.numpy()
+    a, b = grids.shape[0], len(valid_counts)
+    xy = (grids[None] + rng.uniform(-1, 1, (b, a, 2))) * strides[None, :, None]
+    wh = np.exp(rng.uniform(-1, 2, (b, a, 2))) * strides[None, :, None]
+    gb = np.zeros((b, g, 4), np.float32)
+    gv = np.zeros((b, g), bool)
+    for i, n in enumerate(valid_counts):
+        gb[i, :n] = np.concatenate([rng.uniform(32, size - 32, (n, 2)),
+                                    rng.uniform(24, 160, (n, 2))], -1)
+        gv[i, :n] = True
+    arrays = (np.concatenate([xy, wh], -1), rng.standard_normal((b, a, c)),
+              rng.standard_normal((b, a)), gb)
+    tensors = [torch.from_numpy(np.asarray(x, np.float32)).to(dev) for x in arrays]
+    tensors += [torch.from_numpy(rng.integers(0, c, (b, g)).astype(np.int32)).to(dev),
+                torch.from_numpy(gv).to(dev), torch.from_numpy(grids).to(dev),
+                torch.from_numpy(strides).to(dev)]
+    return tensors
+
+
+def _simota_both(args):
+    before = simota_fused.LAUNCHES["simota_assign"]
+    ker, kdyn = simota_fused.simota_assign_batched(*args, return_dynamic_ks=True)
+    torch.cuda.synchronize()
+    assert simota_fused.LAUNCHES["simota_assign"] == before + 1
+    ref, rdyn = simota_fused.simota_assign_batched(*args, use_kernel=False,
+                                                   return_dynamic_ks=True)
+    assert simota_fused.LAUNCHES["simota_assign"] == before + 1
+    return ker, kdyn, ref, rdyn
+
+
+def test_simota_kernel_is_exact_on_ties_and_trivial_images(dev):
+    args = _simota_inputs(dev, [0, 1, 7, 7], seed=3)
+    pred, cls, obj, gb, gc = args[:5]
+    for i in (2, 3):                     # duplicated GT rows, duplicated anchors
+        gb[i, 2], gc[i, 2] = gb[i, 1], gc[i, 1]
+        pred[i, :4096] = gb[i, 1]
+        cls[i, :4096] = cls[i, 0]
+        obj[i, :4096] = obj[i, 0]
+    ker, kdyn, ref, rdyn = _simota_both(args)
+    assert torch.equal(ker.fg_mask, ref.fg_mask)
+    assert torch.equal(ker.matched_gt, ref.matched_gt)
+    assert torch.equal(kdyn, rdyn)
+    torch.testing.assert_close(ker.pred_iou, ref.pred_iou, rtol=0, atol=1e-6)
+    assert ker.num_fg[0].item() == 0 and ker.num_fg[1].item() >= 1
+    assert not (ker.matched_gt[2:][ker.fg_mask[2:]] == 2).any()
+
+
+def test_simota_kernel_matches_plain_on_random_inputs(dev):
+    args = _simota_inputs(dev, [0, 1, 7, 100, 30, 100, 3, 64], seed=4)
+    ker, kdyn, ref, rdyn = _simota_both(args)
+    agree = (ker.fg_mask == ref.fg_mask).float().mean().item()
+    both = ker.fg_mask & ref.fg_mask
+    assert agree >= 0.999
+    assert torch.equal(ker.matched_gt[both], ref.matched_gt[both])
+    torch.testing.assert_close(ker.pred_iou[both], ref.pred_iou[both], rtol=0, atol=1e-5)
+    assert abs(ker.num_fg.sum().item() - ref.num_fg.sum().item()) <= 0.01 * ref.num_fg.sum().item()
+    assert (kdyn == rdyn).float().mean().item() >= 0.99
+    assert ref.num_fg.sum().item() > 100

@@ -30,6 +30,16 @@ def test_no_jax_imports(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+def test_the_walk_covers_the_training_modules_and_the_smoke_script():
+    """Every module the train step added is among the checked sources."""
+    have = {str(p.relative_to(ROOT)) for p in SOURCES}
+    want = {"chip_smoke.py"} | {f"asy_vrnet_tpu_torch/{m}.py" for m in (
+        "ops/losses_seg", "ops/losses_seg_fused", "ops/simota", "ops/simota_fused",
+        "ops/losses_det", "ops/kernels", "train/optim", "train/state", "train/train_step",
+        "data/synthetic", "data/preprocess", "utils/weights", "utils/device")}
+    assert want <= have, sorted(want - have)
+
+
 def test_checker_sees_forbidden_imports(tmp_path):
     src = tmp_path / "m.py"
     src.write_text("import jax.numpy as jnp\nfrom asy_vrnet_tpu.ops import cluster\n"

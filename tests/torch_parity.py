@@ -5,6 +5,7 @@ through the bridge."""
 import numpy as np
 
 import jax
+import jax.numpy as jnp
 
 from asy_vrnet_tpu.config import ModelConfig as JaxModelConfig
 from asy_vrnet_tpu.models.efficient_vrnet import create_model as jax_create_model
@@ -107,3 +108,162 @@ def check_forward_and_boxes(jm, variables, port, size: int):
                                   np.asarray(jout["classes"])[valid])
     np.testing.assert_allclose(own["boxes_xyxy"].numpy()[valid],
                                np.asarray(jout["boxes_xyxy"])[valid], atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# train-step parity: one JAX train state and the port's, carried across by
+# the bridge
+# ---------------------------------------------------------------------------
+
+def train_configs(multitask_mode: str = "fixed", size: int = 64, **optim):
+    """-> (JAX Config, port Config): coc_dryrun, f32, module-path blocks.  The
+    JAX side takes its oracle seg loss (CPU default), the port its fused path
+    (through the kernels' plain twins on the CPU)."""
+    from asy_vrnet_tpu import config as jc
+    from asy_vrnet_tpu_torch import config as tc
+
+    def make(mod, use_pallas_seg):
+        return mod.Config(
+            model=mod.ModelConfig(phi="nano", variant="coc_dryrun", compute_dtype="float32",
+                                  use_pallas_cluster=False, prestem_s2d=False,
+                                  input_size=(size, size)),
+            loss=mod.LossConfig(multitask_mode=multitask_mode, max_boxes=16,
+                                use_pallas_seg=use_pallas_seg),
+            optim=mod.OptimConfig(init_lr=1e-2, **optim),
+            train=mod.TrainConfig(batch_size=2))
+
+    return make(jc, None), make(tc, True)
+
+
+def jax_train_setup(jcfg, tcfg, size: int = 64, lr: float = 1e-2, seed: int = 0):
+    """-> (jax model, JAX TrainState, tx).  The weights are the port's own
+    initialisation plus N(0, 0.05) noise (so LayerScale, the norms' affines
+    and alpha/beta all matter), carried to flax through the bridge's inverse;
+    the flax tree's structure comes from `jax.eval_shape`, which compiles
+    nothing."""
+    import torch
+
+    from asy_vrnet_tpu.train.optim import set_learning_rate
+    from asy_vrnet_tpu.train.state import create_train_state
+
+    from asy_vrnet_tpu_torch.utils.weights import flax_from_state_dict
+
+    torch.manual_seed(seed)       # the port's init draws from the global generator
+    jm = jax_create_model(jcfg.model)
+    zeros = lambda c: np.zeros((1, size, size, c), np.float32)  # noqa: E731
+    like = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), zeros(3), zeros(4),
+                                          train=False))
+    port = create_model(tcfg.model, device="cpu")
+    g = torch.Generator().manual_seed(seed + 1)
+    with torch.no_grad():
+        for p in port.parameters():
+            p.add_(torch.randn(p.shape, generator=g) * 0.05)
+    sd = port.state_dict()
+    params = jax.tree.map(jnp.asarray, flax_from_state_dict(sd, like["params"]))
+    bstats = jax.tree.map(jnp.asarray, flax_from_state_dict(sd, like["batch_stats"]))
+    state, tx = create_train_state(jcfg, params, bstats)
+    return jm, state.replace(opt_state=set_learning_rate(state.opt_state, lr)), tx
+
+
+def jax_state_to_numpy(state) -> dict:
+    """The fields `train_state_from_flax` takes, as numpy."""
+    tonp = lambda t: jax.tree.map(np.asarray, t)  # noqa: E731
+    n = sum(int(np.prod(v.shape)) for v in jax.tree.leaves(state.params))
+    flat = [np.asarray(v) for v in jax.tree.leaves(state.opt_state)
+            if getattr(v, "ndim", 0) == 1 and v.shape[0] == n]
+    counts = [np.asarray(v) for v in jax.tree.leaves(state.opt_state)
+              if getattr(v, "ndim", 1) == 0 and np.issubdtype(np.asarray(v).dtype, np.integer)]
+    opt = ({"trace": flat[0]} if len(flat) == 1 else
+           {"mu": flat[0], "nu": flat[1], "count": int(counts[0])})
+    return dict(params=tonp(state.params), batch_stats=tonp(state.batch_stats),
+                opt_state_flat=opt, log_var=np.asarray(state.log_var),
+                ema_params=tonp(state.ema_params),
+                ema_batch_stats=tonp(state.ema_batch_stats),
+                ema_updates=float(state.ema_updates), step=int(state.step))
+
+
+def port_state_from_jax(tcfg, jstate, lr: float = 1e-2):
+    """A port TrainState on the CPU carrying the JAX state."""
+    from asy_vrnet_tpu_torch.train.optim import set_learning_rate
+    from asy_vrnet_tpu_torch.train.state import create_train_state
+    from asy_vrnet_tpu_torch.utils.weights import train_state_from_flax
+
+    state = create_train_state(tcfg, device="cpu")
+    train_state_from_flax(state, **jax_state_to_numpy(jstate))
+    set_learning_rate(state.optimizer, lr)
+    return state
+
+
+def assert_trees_close(got: dict, want, atol: float, what: str):
+    want_leaves = jax.tree_util.tree_leaves_with_path(jax.tree.map(np.asarray, want))
+    got_leaves = jax.tree_util.tree_leaves_with_path(got)
+    assert len(want_leaves) == len(got_leaves)
+    for (path, w), (_, g) in zip(want_leaves, got_leaves):
+        np.testing.assert_allclose(g, w, atol=atol, rtol=0,
+                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
+
+
+def run_one_step_each(mode: str, freeze_backbone: bool = False, seeds=(0, 1),
+                      weight_seed: int = 1):
+    """One JAX train state stepped twice (batches from `seeds`) and the port's
+    state carried over by the bridge and stepped once.  -> dict with the JAX
+    states and metrics, the port state and metrics, and what a second port
+    step needs.
+
+    weight_seed: both packages compute in f32 in another order, so a ReLU
+    input within rounding of 0 can land on either side of the kink.  The
+    forward value does not notice, but that element's gradient is passed on
+    one side and dropped on the other, which moves a few parameters' updates
+    by ~1e-3 (a central finite difference lands midway between the two).
+    About one weight draw in three has such an element (seeds 0 and 3 do);
+    the tests use draws that have none, so the tight tolerances hold."""
+    from asy_vrnet_tpu.train.train_step import build_train_step as j_build
+
+    from asy_vrnet_tpu_torch.data.synthetic import make_batch
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    jcfg, tcfg = train_configs(mode)
+    jm, j0, tx = jax_train_setup(jcfg, tcfg, seed=weight_seed)
+    jstep = jax.jit(j_build(jm, jcfg, tx, freeze_backbone=freeze_backbone))
+    batches = [make_batch(np.random.default_rng(s), 2, (64, 64)) for s in seeds]
+    j1, jm1 = jstep(j0, jax.tree.map(jnp.asarray, batches[0]))
+    j2, jm2 = jstep(j1, jax.tree.map(jnp.asarray, batches[1]))
+    tstep = build_train_step(tcfg, freeze_backbone=freeze_backbone, device="cpu")
+    t1, tm1 = tstep(port_state_from_jax(tcfg, j0), batches[0])
+    return dict(tcfg=tcfg, j0=j0, j1=j1, j2=j2, jm1=jm1, jm2=jm2, t1=t1, tm1=tm1,
+                tstep=tstep, batches=batches)
+
+
+def check_first_step(r):
+    """After one step: the five metrics rtol 1e-4; parameters and their EMA
+    atol 1e-5; BN running stats and their EMA atol 1e-5 + rtol 1e-5 (running
+    variances reach ~1e2 here, where one f32 ulp is 8e-6).  f32 on both sides,
+    the same arithmetic in another order."""
+    from asy_vrnet_tpu_torch.utils.weights import flax_from_train_state
+
+    for k in ("loss", "loss_det", "loss_seg", "f_score", "num_fg"):
+        np.testing.assert_allclose(float(r["tm1"][k]), float(r["jm1"][k]), rtol=1e-4,
+                                   err_msg=k)
+    j1, t1 = r["j1"], r["t1"]
+    got = flax_from_train_state(t1, j1.params, j1.batch_stats)
+    assert_trees_close(got["params"], j1.params, 1e-5, "params")
+    assert_trees_close(got["ema_params"], j1.ema_params, 1e-5, "ema_params")
+    for name, want in (("batch_stats", j1.batch_stats),
+                       ("ema_batch_stats", j1.ema_batch_stats)):
+        for (path, w), g in zip(jax.tree_util.tree_leaves_with_path(want),
+                                jax.tree.leaves(got[name])):
+            np.testing.assert_allclose(g, np.asarray(w), atol=1e-5, rtol=1e-5,
+                                       err_msg=f"{name} {jax.tree_util.keystr(path)}")
+    assert t1.step == int(j1.step) == 1 and t1.ema_updates == float(j1.ema_updates) == 1.0
+
+
+def check_second_step(r):
+    """The second step's metrics, from the port's own state and from a new
+    port state bridged from the JAX state after step one: rtol 1e-3."""
+    own, m_own = r["tstep"](r["t1"], r["batches"][1])
+    bridged, m_br = r["tstep"](port_state_from_jax(r["tcfg"], r["j1"]), r["batches"][1])
+    for m in (m_own, m_br):
+        for k in ("loss", "loss_det", "loss_seg", "f_score", "num_fg"):
+            np.testing.assert_allclose(float(m[k]), float(r["jm2"][k]), rtol=1e-3, err_msg=k)
+    assert own.step == bridged.step == 2
+    return own, bridged
