@@ -5,9 +5,9 @@ The same dataclasses, defaults and JSON round trip as the JAX package's
 keeps its own copy and never imports the JAX package.  Fields that only steer
 the TPU build (`use_pallas_cluster`'s and `use_pallas_seg`'s Pallas wording,
 `prestem_s2d`, `train_remat`) are kept for the round trip; the port reads
-`use_pallas_cluster` as "use the fused ClusterBlock kernels" (inference only
-so far: training needs False) and `use_pallas_seg` as "use the fused seg-loss
-kernel", and always takes the literal pre-stem entry.
+`use_pallas_cluster` as "use the fused ClusterBlock kernels" (forward and
+backward) and `use_pallas_seg` as "use the fused seg-loss kernel", and always
+takes the literal pre-stem entry.
 """
 from __future__ import annotations
 

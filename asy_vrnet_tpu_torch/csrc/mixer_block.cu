@@ -2,7 +2,11 @@
 //   out = x + fc2(cluster_mix(fc1(xn), fc_v(xn))),  xn = (x - mu) * rstd
 // plus per-block partial (sum, sum of squares) of the stored output, which
 // the caller reduces (torch sum, deterministic) into the GroupNorm
-// statistics the MLP half consumes.
+// statistics the MLP half consumes.  In training it also writes the residual
+// pack the backward kernel (mixer_block_bwd.cu) consumes: per (token, head)
+// the winning cosine and proposal, per (region, head, proposal) the raw
+// pooled center and the mixed center (the TPU kernel's (cbest, argf, c_rep,
+// oc), in the port's own layout).
 //
 // Replaces the TPU kernel asy_vrnet_tpu/ops/block_pallas.py::_mixer_block_pallas
 // (kernel _mixer_block_kernel, body _mixer_block_fwd_body), reached through
@@ -103,7 +107,8 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                    const T* __restrict__ w2, const float* __restrict__ b2,
                    const float* __restrict__ ab, T* __restrict__ out,
                    float* __restrict__ part, int8_t* __restrict__ assign_out,
-                   Geo g, Smem L) {
+                   T* __restrict__ cbest_out, T* __restrict__ crep_out,
+                   T* __restrict__ oc_out, Geo g, Smem L) {
   using asy::rnd;
   using asy::to_f;
   extern __shared__ float4 smem4[];
@@ -142,6 +147,11 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     return ((size_t)(b * g.H + row0 + n / g.rw) * g.W + cl0 + n % g.rw) * C;
   };
   auto norm_in = [&](T v) -> float { return rnd<T>((to_f<T>(v) - mu) * rstd); };
+  // residual pack: center row (region, head, proposal), head-major
+  auto center = [&](int m, int j) -> size_t {
+    const int h = rank * hpc + j / D;
+    return ((((size_t)b * (gridDim.x / G) + r) * heads + h) * M + m) * D + j % D;
+  };
 
   for (int e = tid; e < kSplit * hpc * M * C; e += kThreads) aggp[e] = 0.f;
   for (int e = tid; e < hpc * M; e += kThreads) rs[e] = cnt[e] = 0.f;
@@ -169,6 +179,7 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     }
     cn[e] = af + bf[i];
     vc[e] = av + bv[i];
+    if (crep_out != nullptr) crep_out[center(m, e % Dg)] = asy::from_f<T>(cn[e]);
   }
   __syncthreads();
   for (int e = tid; e < M * hpc; e += kThreads) {
@@ -224,22 +235,26 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       for (int d = sub; d < D; d += kLanes) n2 += rnd<T>(f[d] * f[d]);
       for (int o = kLanes / 2; o > 0; o >>= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, o);
       const float inv = rnd<T>(rsqrtf(n2 + 1e-12f));
-      float best = 0.f;
+      float best = 0.f, cbest = 0.f;
       int arg = 0;
       for (int m = 0; m < M; ++m) {
         const float* cm = cn + m * Dg + hl * D;
         float raw = 0.f;
         for (int d = sub; d < D; d += kLanes) raw = fmaf(cm[d], rnd<T>(f[d]), raw);
         for (int o = kLanes / 2; o > 0; o >>= 1) raw += __shfl_xor_sync(0xffffffffu, raw, o);
-        const float lg = beta + alpha * (raw * inv);
+        const float cs = raw * inv;
+        const float lg = beta + alpha * cs;
         if (m == 0 || lg > best) {  // strict >: the first max wins
           best = lg;
           arg = m;
+          cbest = cs;
         }
       }
       if (sub == 0 && t < nt) {
         sg[(n0 + t) * hpc + hl] = 1.f / (1.f + expf(-best));
         asg[(n0 + t) * hpc + hl] = (unsigned char)arg;
+        if (cbest_out != nullptr)
+          cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(cbest);
       }
     }
     __syncthreads();
@@ -281,6 +296,7 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       acc = fmaf(aggp[hm * C + c], to_f<T>(wv[(size_t)c * I + i]), acc);
     const float agg = acc + rs[hm] * bv[i];
     oc[e] = rnd<T>((agg + vc[e]) * (1.f / (cnt[hm] + 1.f)));
+    if (oc_out != nullptr) oc_out[center(m, j)] = asy::from_f<T>(oc[e]);
   }
   __syncthreads();
   for (int e = tid; e < hpc * M * C; e += kThreads) {
@@ -362,9 +378,9 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
 template <typename T>
 int launch(const void* x, const float* stats, const void* wf, const float* bf,
            const void* wv, const float* bv, const void* w2, const float* b2,
-           const float* ab, void* out, float* part, int8_t* assign, int B, int H,
-           int W, int C, int I, int heads, int fold_h, int fold_w, int ph, int pw,
-           int G, void* stream) {
+           const float* ab, void* out, float* part, int8_t* assign, void* cbest,
+           void* crep, void* oc, int B, int H, int W, int C, int I, int heads,
+           int fold_h, int fold_w, int ph, int pw, int G, void* stream) {
   if (B <= 0 || C % 4 || heads <= 0 || I % heads || fold_h <= 0 || fold_w <= 0 ||
       H % fold_h || W % fold_w || ph <= 0 || pw <= 0 || ph * pw > 255 || G <= 0 ||
       G > 8 || heads % G)
@@ -390,7 +406,7 @@ int launch(const void* x, const float* stats, const void* wf, const float* bf,
   cfg.numAttrs = G > 1;  // a single-CTA "cluster" launches as a plain grid
   e = cudaLaunchKernelEx(&cfg, mixer_block_kernel<T>, (const T*)x, stats,
                          (const T*)wf, bf, (const T*)wv, bv, (const T*)w2, b2, ab,
-                         (T*)out, part, assign, g, L);
+                         (T*)out, part, assign, (T*)cbest, (T*)crep, (T*)oc, g, L);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -399,25 +415,27 @@ int launch(const void* x, const float* stats, const void* wf, const float* bf,
 
 extern "C" {
 
+// assign and the three residual outputs may be null (eval: nothing extra)
 int mixer_block_bf16(const void* x, const float* stats, const void* wf,
                      const float* bf, const void* wv, const float* bv,
                      const void* w2, const float* b2, const float* ab, void* out,
-                     float* part, int8_t* assign, int B, int H, int W, int C,
-                     int I, int heads, int fold_h, int fold_w, int ph, int pw,
-                     int G, void* stream) {
+                     float* part, int8_t* assign, void* cbest, void* crep, void* oc,
+                     int B, int H, int W, int C, int I, int heads, int fold_h,
+                     int fold_w, int ph, int pw, int G, void* stream) {
   return launch<__nv_bfloat16>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part,
-                               assign, B, H, W, C, I, heads, fold_h, fold_w, ph,
-                               pw, G, stream);
+                               assign, cbest, crep, oc, B, H, W, C, I, heads,
+                               fold_h, fold_w, ph, pw, G, stream);
 }
 
 int mixer_block_f32(const void* x, const float* stats, const void* wf,
                     const float* bf, const void* wv, const float* bv,
                     const void* w2, const float* b2, const float* ab, void* out,
-                    float* part, int8_t* assign, int B, int H, int W, int C,
-                    int I, int heads, int fold_h, int fold_w, int ph, int pw,
-                    int G, void* stream) {
+                    float* part, int8_t* assign, void* cbest, void* crep, void* oc,
+                    int B, int H, int W, int C, int I, int heads, int fold_h,
+                    int fold_w, int ph, int pw, int G, void* stream) {
   return launch<float>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign,
-                       B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, stream);
+                       cbest, crep, oc, B, H, W, C, I, heads, fold_h, fold_w, ph,
+                       pw, G, stream);
 }
 
 }  // extern "C"

@@ -2,14 +2,13 @@
 `asy_vrnet_tpu/models/cluster_block.py`; reference vr_coc.py:128-300).
 
 Where the shape allows (`mixer_block_supported` and `mlp_block_supported`,
-the JAX package's predicates) and `fused=True`, each residual half of the
-block is one fused op (`ops/block.py`: a CUDA kernel on the card, its plain
-twin on the CPU).  Otherwise the module path runs: GN1 -> Cluster (fc1/fc_v
--> plain `cluster_mix` -> fc2) -> LayerScale -> +x; GN2 -> Mlp ->
-LayerScale -> +x.  Both paths read the same parameters.
-
-Training runs the module path (plain autograd): the fused halves have no
-backward kernels yet, so a block built with `fused=True` raises in train mode.
+the JAX package's predicates), `fused=True`, and no dropout is active (drop
+rate 0, and drop-path 0 or eval mode, as in the JAX package), each residual
+half of the block is one fused op (`ops/block.py`: a CUDA kernel on the card,
+its plain twin on the CPU), in training as well: the forward runs K2 and K1,
+the backward K6 and K5.  Otherwise the module path runs: GN1 -> Cluster
+(fc1/fc_v -> plain `cluster_mix` -> fc2) -> LayerScale -> +x; GN2 -> Mlp ->
+LayerScale -> +x, with plain autograd.  Both paths read the same parameters.
 """
 from __future__ import annotations
 
@@ -80,6 +79,7 @@ class ClusterBlock(nn.Module):
         self.fold_h, self.fold_w = fold_h, fold_w
         self.proposal_h, self.proposal_w = proposal_h, proposal_w
         self.fused = fused
+        self.drop_rate, self.drop_path_rate = drop, drop_path
         self.norm1 = GroupNorm1(dim)
         self.token_mixer = Cluster(dim, dim, proposal_w, proposal_h, fold_w,
                                    fold_h, heads, head_dim)
@@ -90,19 +90,18 @@ class ClusterBlock(nn.Module):
         self.layer_scale_2 = nn.Parameter(layer_scale_init_value * torch.ones(dim))
 
     def fused_ok(self, x: torch.Tensor) -> bool:
+        """JAX `ClusterBlock`'s gate: fused, no active dropout, shapes the
+        kernels take."""
         b, c, h, w = x.shape
         shape = (b, h, w, c)
-        return self.fused and mixer_block_supported(
+        no_drop = self.drop_rate == 0.0 and (self.drop_path_rate == 0.0 or not self.training)
+        return self.fused and no_drop and mixer_block_supported(
             shape, heads=self.heads, head_dim=self.head_dim,
             fold_h=self.fold_h, fold_w=self.fold_w,
             proposal_h=self.proposal_h, proposal_w=self.proposal_w,
         ) and mlp_block_supported(shape)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.fused and self.training:
-            raise NotImplementedError(
-                "the fused ClusterBlock halves have no backward kernels yet; "
-                "train with ModelConfig(use_pallas_cluster=False)")
         if self.fused_ok(x):
             tm, mlp = self.token_mixer, self.mlp
             y, stats = fused_mixer_block_stats(

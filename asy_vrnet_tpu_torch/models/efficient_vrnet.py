@@ -9,7 +9,9 @@ Inside, tensors are NCHW in `torch.channels_last` memory, so the NHWC inputs
 and outputs are views, and the ClusterBlock kernels read NHWC tokens without
 copies.  Parameters are f32; `ModelConfig.compute_dtype` sets the activation
 dtype.  `model.train()` switches BatchNorm to batch statistics (and dropout
-on, where a variant has any); training needs `use_pallas_cluster=False`.
+on, where a variant has any); with `use_pallas_cluster` the eligible
+ClusterBlocks train through the fused kernels (K2/K1 forward, K6/K5
+backward).
 """
 from __future__ import annotations
 

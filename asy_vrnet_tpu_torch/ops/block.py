@@ -1,10 +1,14 @@
 """The two fused ClusterBlock halves (counterpart of
-`asy_vrnet_tpu/ops/block_pallas.py`), each a hand-written CUDA kernel with a
-plain PyTorch twin:
+`asy_vrnet_tpu/ops/block_pallas.py`), forward and backward, each a
+hand-written CUDA kernel with a plain PyTorch twin:
 
   mixer half (K2): x + ls1 * fc2(cluster_mix(fc1(GN1(x)), fc_v(GN1(x))))
-                   plus the per-sample moments of its output
+                   plus the per-sample moments of its output; in training
+                   also the residual pack its backward consumes
   MLP half   (K1): x + ls2 * fc2(GELU(fc1(GN2(x))))  with pre-reduced stats
+  mixer backward (K6), MLP backward (K5): the cotangent of the normalised
+                   input, the folded-weight gradients summed over the batch
+                   and the per-sample sums the GroupNorm backward needs
 
 GroupNorm(1)'s per-sample statistics are a cross-tile reduction, so they come
 in as (B, 2) [mean, rstd]; the GN affine folds into the input-side weights
@@ -12,22 +16,28 @@ and LayerScale into the output-side ones (`_fold_in`/`_fold_out`).  The mixer
 half also returns its output's GN statistics, which the MLP half consumes, so
 a block reads its input from device memory once per half.
 
+`fused_mixer_block_stats` and `fused_mlp_block_pre` are what ClusterBlock
+calls.  Under autograd they are `torch.autograd.Function`s that follow the
+JAX package's custom VJPs: the kernels compute the folded-weight gradients,
+and unfolding them to the GN affine, the 1x1 weights and LayerScale, and the
+GroupNorm input gradient, stay plain torch ops.
+
 Layout at every public function is NHWC (B, H, W, C), contiguous; the model
-passes the NHWC view of its channels_last tensors.  `mixer_block` and
-`mlp_block` take CPU tensors through the plain version and CUDA tensors
-through the kernel (or raise); each counts its kernel launches in LAUNCHES.
+passes the NHWC view of its channels_last tensors.  The wrappers take CPU
+tensors through the plain version and CUDA tensors through the kernel (or
+raise); each counts its kernel launches in LAUNCHES.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from asy_vrnet_tpu_torch.ops.cluster import cluster_mix
+from asy_vrnet_tpu_torch.ops.cluster import _fold_tokens, _pool_matrix, _unfold_tokens
 
 _GN_EPS = 1e-5
 
 # kernel launches per wrapper; plain-version calls are not counted
-LAUNCHES = {"mixer_block": 0, "mlp_block": 0}
+LAUNCHES = {"mixer_block": 0, "mlp_block": 0, "mixer_block_bwd": 0, "mlp_block_bwd": 0}
 
 
 def gn1_stats(x: torch.Tensor) -> torch.Tensor:
@@ -102,30 +112,84 @@ def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return t.to(dtype).float()
 
 
+def _normalise(x, stats):
+    """f32 (x - mean) * rstd with per-sample (B, 2) stats."""
+    return (x.float() - stats[:, 0, None, None, None]) * stats[:, 1, None, None, None]
+
+
+def _regions(t, fold_h, fold_w):
+    """NHWC (B,H,W,K) -> (B, R, N, K) region tokens, and (rh, rw)."""
+    t, hw = _fold_tokens(t, 1, fold_h, fold_w)
+    return t[:, 0], hw
+
+
+def _from_regions(t, hw, fold_h, fold_w):
+    """(B, R, N, K) -> NHWC (B,H,W,K); inverse of _regions."""
+    return _unfold_tokens(t[:, None], hw, fold_h, fold_w)
+
+
 def mixer_block_plain(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
                       fold_h, fold_w, proposal_h, proposal_w,
-                      return_assign=False):
-    """Plain mixer half on folded weights: GN -> 1x1 -> cluster_mix -> fc2 ->
-    residual, computed in f32 with the working dtype's roundings where the
-    JAX package's `_mixer_block_ref` has them.  Returns (out, moments (B,2))
-    [, assignments (B, heads, H, W)]."""
+                      return_assign=False, return_residuals=False):
+    """Plain mixer half on folded weights, in the TPU kernel's own
+    formulation (`_mixer_block_fwd_body`): centers pooled in input space and
+    projected, first-max assignment on the pre-sigmoid logit, aggregation in
+    input space, dispatch of the fc2-projected centers.  f32 with the working
+    dtype's roundings where that kernel casts to its matrix-unit dtype.
+    Returns (out, moments (B,2) [sum, sum sq] of the stored output)
+    [, assignments (B, heads, H, W) int64] [, residual pack].
+
+    The residual pack (training) is what `mixer_block_bwd` consumes:
+    (cbest (B,H,W,heads) x.dtype, the winning cosine per (token, head);
+     argf (B,H,W,heads) int8, the winning proposal;
+     c_rep (B, R, heads*M, head_dim) x.dtype, the raw pooled centers;
+     oc (B, R, heads*M, head_dim) x.dtype, the mixed centers
+     (S.V + V_c) / (count + 1)), R = fold_h*fold_w regions row-major, center
+    rows head-major (h*M + m)."""
     dt = x.dtype
-    xf = x.float()
-    xn = (xf - stats[:, 0, None, None, None]) * stats[:, 1, None, None, None]
-    xnb = _round(xn, dt)
-    feat = _round(xnb @ wf.float() + bf, dt)
-    value = _round(xnb @ wv.float() + bv, dt)
-    mixed = cluster_mix(feat, value, alpha_beta[0], alpha_beta[1], heads=heads,
-                        fold_h=fold_h, fold_w=fold_w, proposal_h=proposal_h,
-                        proposal_w=proposal_w, return_assign=return_assign)
-    if return_assign:
-        mixed, assign = mixed
-    y = _round(mixed, dt) @ w2.float() + b2
-    out = (xf + y).to(dt)
+    rnd = lambda t: _round(t, dt)  # noqa: E731
+    b, h, w, c = x.shape
+    inner = wf.shape[1]
+    d = inner // heads
+    m = proposal_h * proposal_w
+    alpha, beta = alpha_beta[0], alpha_beta[1]
+    wf, wv, w2 = wf.float(), wv.float(), w2.float()
+    heads_of = lambda t: t.reshape(*t.shape[:-1], heads, d)  # noqa: E731
+
+    xn, region_hw = _regions(_normalise(x, stats), fold_h, fold_w)
+    xnb = rnd(xn)                                     # (B,R,N,C)
+    pool = rnd(_pool_matrix(region_hw, (proposal_h, proposal_w), x.device, torch.float32))
+    cin = rnd(torch.einsum("mn,brnc->brmc", pool, xnb))
+    c_rep = heads_of(cin @ wf + bf).transpose(2, 3)   # (B,R,h,M,D)
+    vc = heads_of(cin @ wv + bv).transpose(2, 3)
+    cn = rnd(c_rep * torch.rsqrt((c_rep * c_rep).sum(-1, keepdim=True) + 1e-12))
+    feat = heads_of(xnb @ wf + bf)                    # (B,R,N,h,D)
+    inv = rnd(torch.rsqrt(rnd(feat * feat).sum(-1) + 1e-12))
+    cos = torch.einsum("brhmd,brnhd->brnhm", cn, rnd(feat)) * inv[..., None]
+    logit = beta + alpha * cos
+    arg = logit.argmax(-1)                            # first max, (B,R,N,h)
+    cbest = cos.gather(-1, arg[..., None])[..., 0]
+    sgb = torch.sigmoid(logit.gather(-1, arg[..., None])[..., 0])
+    mask = F.one_hot(arg, m).float()                  # (B,R,N,h,M)
+    simb = mask * rnd(sgb)[..., None]
+    icnt = 1.0 / (mask.sum(2) + 1.0)                  # (B,R,h,M)
+    rs = (mask * sgb[..., None]).sum(2)
+    aggx = rnd(torch.einsum("brnhm,brnc->brhmc", simb, xnb))
+    agg = (torch.einsum("brhmc,chd->brhmd", aggx, wv.reshape(c, heads, d))
+           + rs[..., None] * bv.reshape(heads, 1, d))
+    oc = rnd((agg + vc) * icnt[..., None])
+    ocw = rnd(torch.einsum("brhmd,hdc->brhmc", oc, w2.reshape(heads, d, c)))
+    y = torch.einsum("brnhm,brhmc->brnc", simb, ocw) + b2
+    out = (x.float() + _from_regions(y, region_hw, fold_h, fold_w)).to(dt)
     ob = out.float()
     moments = torch.stack([ob.sum(dim=(1, 2, 3)), (ob * ob).sum(dim=(1, 2, 3))], -1)
+    nhwc = lambda t: _from_regions(t, region_hw, fold_h, fold_w)  # noqa: E731
+    if return_residuals:
+        rows = lambda t: t.reshape(b, -1, heads * m, d).to(dt)  # noqa: E731
+        return out, moments, (nhwc(cbest).to(dt), nhwc(arg).to(torch.int8), rows(c_rep),
+                              rows(oc))
     if return_assign:
-        return out, moments, assign
+        return out, moments, nhwc(arg).permute(0, 3, 1, 2)
     return out, moments
 
 
@@ -133,11 +197,143 @@ def mlp_block_plain(x, stats, w1, b1, w2, b2):
     """Plain MLP half on folded weights (exact-erf GELU), in f32 with the
     working dtype's roundings at the kernel's matmul operands."""
     dt = x.dtype
-    xf = x.float()
-    xn = (xf - stats[:, 0, None, None, None]) * stats[:, 1, None, None, None]
-    z = _round(xn, dt) @ w1.float() + b1
+    z = _round(_normalise(x, stats), dt) @ w1.float() + b1
     y = _round(F.gelu(z), dt) @ w2.float() + b2
-    return (xf + y).to(dt)
+    return (x.float() + y).to(dt)
+
+
+def _gelu_and_grad(z):
+    """Exact-erf GELU and its derivative Phi(z) + z*phi(z)."""
+    cdf = 0.5 * (1.0 + torch.erf(z * 0.7071067811865476))
+    return z * cdf, cdf + z * torch.exp(-0.5 * z * z) * 0.3989422804014327
+
+
+def mlp_block_bwd_plain(x, g, stats, w1, b1, w2):
+    """Plain MLP-half backward on folded weights (`_mlp_bwd_kernel` of the
+    JAX package, fc1 rematerialised), rounding where that kernel casts to its
+    matrix-unit dtype.  x, g (B,H,W,C) in one dtype.  Returns (dxn in x.dtype,
+    dW1 (C,hid), db1 (hid,), dW2 (hid,C), db2 (C,), sums (B, 2) [sum dxn,
+    sum dxn*xn] taken from the f32 dxn), all but dxn f32 and summed over the
+    batch."""
+    dt = x.dtype
+    xn = _normalise(x, stats)
+    xnb = _round(xn, dt).reshape(-1, x.shape[-1])
+    gb = g.float().reshape(-1, x.shape[-1])
+    act, dgelu = _gelu_and_grad(xnb @ w1.float() + b1)
+    dz1 = (gb @ w2.float().t()) * dgelu
+    dz1b = _round(dz1, dt)
+    dxn = (dz1b @ w1.float().t()).reshape(x.shape)
+    sums = torch.stack([dxn.sum(dim=(1, 2, 3)), (dxn * xn).sum(dim=(1, 2, 3))], -1)
+    return (dxn.to(dt), xnb.t() @ dz1b, dz1.sum(0), _round(act, dt).t() @ gb,
+            gb.sum(0), sums)
+
+
+def mixer_block_bwd_plain(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals,
+                          *, heads, fold_h, fold_w, proposal_h, proposal_w):
+    """Plain mixer-half backward on folded weights, step by step after the JAX
+    package's `_mixer_bwd_kernel_res` + `_mixer_bwd_tail`: feat, the per-head
+    token norms and the pooled tokens are rebuilt from x; the assignment,
+    the winning cosines and both center sets come from the forward's residual
+    pack (see `mixer_block_plain`).  Roundings to x.dtype where that kernel
+    casts to its matrix-unit dtype.  x, g (B,H,W,C) in one dtype.
+
+    Returns (dxn in x.dtype, dWf (C,I), dbf (I,), dWv (C,I), dbv (I,),
+    dW2 (I,C), db2 (C,), dab (2,) [d alpha, d beta], sums (B,2) [sum dxn,
+    sum dxn*xn] from the f32 dxn); all but dxn f32 and summed over the batch."""
+    dt = x.dtype
+    rnd = lambda t: _round(t, dt)  # noqa: E731
+    cbest, argf, c_rep, oc = residuals
+    b, h, w, c = x.shape
+    inner = wf.shape[1]
+    d = inner // heads
+    m = proposal_h * proposal_w
+    alpha, beta = alpha_beta[0], alpha_beta[1]
+    wf, wv, w2 = wf.float(), wv.float(), w2.float()
+
+    regions = lambda t: _regions(t, fold_h, fold_w)  # noqa: E731
+    xn, region_hw = regions(_normalise(x, stats))
+    xnb = rnd(xn)
+    gb, _ = regions(g.float())
+    r = xn.shape[1]
+    heads_of = lambda t: t.reshape(*t.shape[:-1], heads, d)  # noqa: E731
+
+    # slim remat: feat tokens, per-head norms, pooled tokens
+    feat = heads_of(xnb @ wf + bf)                    # (B,R,N,h,D)
+    featb = rnd(feat)
+    inv = torch.rsqrt(rnd(feat * feat).sum(-1) + 1e-12)   # (B,R,N,h)
+    invr = rnd(inv)
+    pool = rnd(_pool_matrix(region_hw, (proposal_h, proposal_w), x.device, torch.float32))
+    cinb = rnd(torch.einsum("mn,brnc->brmc", pool, xnb))
+
+    # stored residuals -> the similarity plane (winner only) and the centers
+    cb, _ = regions(cbest.float())                    # (B,R,N,h)
+    arg, _ = regions(argf.float())
+    mask = F.one_hot(arg.long(), m).float()           # (B,R,N,h,M)
+    sgb = torch.sigmoid(beta + alpha * cb)
+    sim = mask * sgb[..., None]
+    simb = rnd(sim)
+    icnt = 1.0 / (mask.sum(2) + 1.0)                  # (B,R,h,M)
+    rs = sim.sum(2)
+    aggx = torch.einsum("brnhm,brnc->brhmc", simb, xnb)
+    crep = c_rep.float().reshape(b, r, heads, m, d)
+    inv_c = torch.rsqrt((crep * crep).sum(-1, keepdim=True) + 1e-12)
+    cn = crep * inv_c
+    ocb = rnd(oc.float().reshape(b, r, heads, m, d))
+
+    # y = sim^T (oc @ w2): cotangents of sim and of the fc2-projected centers
+    w2h = w2.reshape(heads, d, c)
+    ocw = torch.einsum("brhmd,hdc->brhmc", ocb, w2h)
+    dsim = torch.einsum("brhmc,brnc->brnhm", rnd(ocw), gb)
+    docwb = rnd(torch.einsum("brnhm,brnc->brhmc", simb, gb))
+    doc = torch.einsum("brhmc,hdc->brhmd", docwb, w2h)
+    dw2 = torch.einsum("brhmd,brhmc->hdc", ocb, docwb).reshape(inner, c)
+
+    # oc = (aggx @ wv + rs*bv + vc) * icnt
+    dagg = doc * icnt[..., None]                      # (B,R,h,M,D), also dvc
+    daggb = rnd(dagg)
+    wvh = wv.reshape(c, heads, d)
+    daggxb = rnd(torch.einsum("brhmd,chd->brhmc", daggb, wvh))
+    dwv = torch.einsum("brhmc,brhmd->chd", rnd(aggx), daggb)
+    drs = (dagg * bv.reshape(heads, 1, d)).sum(-1)       # (B,R,h,M)
+    dbv = torch.einsum("brhm,brhmd->hd", rnd(rs), daggb)
+
+    # aggx = sim @ xn, rs = rowsum(sim)
+    dsim = dsim + torch.einsum("brhmc,brnc->brnhm", daggxb, xnb) + drs[:, :, None]
+    dxn = torch.einsum("brnhm,brhmc->brnc", simb, daggxb)
+
+    # sim = sigmoid(beta + alpha*cos) on the winner; raw = cos/invr there
+    sig = (dsim * mask).sum(-1) * sgb * (1.0 - sgb)   # (B,R,N,h)
+    dab = torch.stack([(sig * cb).sum(), sig.sum()])
+    dcos = sig * alpha
+    drawb = rnd(dcos * invr)
+    dinvr = dcos * (cb * (1.0 / invr))
+    wsel = mask * drawb[..., None]                    # draw on the winner row
+    dcn = torch.einsum("brnhm,brnhd->brhmd", wsel, featb)
+    dfeat = torch.einsum("brnhm,brhmd->brnhd", wsel, rnd(cn))
+    dnorm2 = rnd(rnd(dinvr) * (-0.5) * inv * inv * inv)
+    dfeat = (dfeat + 2.0 * feat * dnorm2[..., None]).flatten(-2)   # (B,R,N,I)
+
+    # cn = c_rep * inv_c; c_rep = pool(xn) @ wf + bf; vc = pool(xn) @ wv + bv
+    d_c_rep = inv_c * (dcn - cn * (cn * dcn).sum(-1, keepdim=True))
+    dcp = d_c_rep.permute(0, 1, 3, 2, 4).reshape(b, r, m, inner)
+    dvp = dagg.permute(0, 1, 3, 2, 4).reshape(b, r, m, inner)
+    dcpb, dvpb = rnd(dcp), rnd(dvp)
+    dwf = torch.einsum("brmc,brmi->ci", cinb, dcpb)
+    dwv = dwv.reshape(c, inner) + torch.einsum("brmc,brmi->ci", cinb, dvpb)
+    dbf = dcp.sum((0, 1, 2))
+    dbv = dbv.reshape(inner) + dvp.sum((0, 1, 2))
+    dcin = rnd(dcpb @ wf.t() + dvpb @ wv.t())         # (B,R,M,C)
+    dxn = dxn + torch.einsum("mn,brmc->brnc", pool, dcin)
+
+    # feat = xn @ wf + bf
+    dfb = rnd(dfeat)
+    dxn = dxn + dfb @ wf.t()
+    dwf = dwf + torch.einsum("brnc,brni->ci", xnb, dfb)
+    dbf = dbf + dfeat.sum((0, 1, 2))
+
+    sums = torch.stack([dxn.sum((1, 2, 3)), (dxn * xn).sum((1, 2, 3))], -1)
+    return (_from_regions(dxn, region_hw, fold_h, fold_w).to(dt), dwf, dbf, dwv, dbv, dw2,
+            gb.sum((0, 1, 2)), dab, sums)
 
 
 # ---------------------------------------------------------------------------
@@ -155,26 +351,13 @@ def _check(name, t, shape, dtype, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
-                fold_h, fold_w, proposal_h, proposal_w, return_assign=False):
-    """Mixer half on folded weights.  x (B,H,W,C) bf16|f32; wf/wv (C,I) and
-    w2 (I,C) in x's dtype; biases, stats (B,2) and alpha_beta (2,) f32.
-    Returns (out (B,H,W,C), moments (B,2) f32 [sum, sum sq] of the stored
-    output) [, assignments (B, heads, H, W)]."""
-    kw = dict(heads=heads, fold_h=fold_h, fold_w=fold_w,
-              proposal_h=proposal_h, proposal_w=proposal_w)
-    if x.device.type == "cpu":
-        return mixer_block_plain(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta,
-                                 return_assign=return_assign, **kw)
-    if x.device.type != "cuda":
-        raise ValueError(f"mixer_block: unsupported device {x.device}")
-    from asy_vrnet_tpu_torch.ops import kernels
-
+def _check_mixer_args(name, x, stats, wf, bf, wv, bv, w2, alpha_beta, heads,
+                      fold_h, fold_w):
     b, h, w, c = x.shape
     inner = wf.shape[1]
     f32, dev = torch.float32, x.device
     if x.dtype not in (torch.bfloat16, torch.float32):
-        raise ValueError(f"mixer_block: dtype {x.dtype} not supported")
+        raise ValueError(f"{name}: dtype {x.dtype} not supported")
     _check("x", x, (b, h, w, c), x.dtype, dev)
     _check("stats", stats, (b, 2), f32, dev)
     _check("wf", wf, (c, inner), x.dtype, dev)
@@ -182,22 +365,59 @@ def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
     _check("wv", wv, (c, inner), x.dtype, dev)
     _check("bv", bv, (inner,), f32, dev)
     _check("w2", w2, (inner, c), x.dtype, dev)
-    _check("b2", b2, (c,), f32, dev)
     _check("alpha_beta", alpha_beta, (2,), f32, dev)
     if inner % heads or h % fold_h or w % fold_w:
-        raise ValueError("mixer_block: heads/folds do not divide the shape")
+        raise ValueError(f"{name}: heads/folds do not divide the shape")
+
+
+def _residual_shapes(x, heads, inner, fold_h, fold_w, proposal_h, proposal_w):
+    b, h, w, _ = x.shape
+    centers = (b, fold_h * fold_w, heads * proposal_h * proposal_w, inner // heads)
+    return (b, h, w, heads), centers
+
+
+def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
+                fold_h, fold_w, proposal_h, proposal_w, return_assign=False,
+                return_residuals=False):
+    """Mixer half on folded weights.  x (B,H,W,C) bf16|f32; wf/wv (C,I) and
+    w2 (I,C) in x's dtype; biases, stats (B,2) and alpha_beta (2,) f32.
+    Returns (out (B,H,W,C), moments (B,2) f32 [sum, sum sq] of the stored
+    output) [, assignments (B, heads, H, W)] [, residual pack, laid out as
+    in `mixer_block_plain`]."""
+    kw = dict(heads=heads, fold_h=fold_h, fold_w=fold_w,
+              proposal_h=proposal_h, proposal_w=proposal_w)
+    if x.device.type == "cpu":
+        return mixer_block_plain(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta,
+                                 return_assign=return_assign,
+                                 return_residuals=return_residuals, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"mixer_block: unsupported device {x.device}")
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    _check_mixer_args("mixer_block", x, stats, wf, bf, wv, bv, w2, alpha_beta,
+                      heads, fold_h, fold_w)
+    b, h, w, c = x.shape
+    f32, dev = torch.float32, x.device
+    _check("b2", b2, (c,), f32, dev)
     out = torch.empty_like(x)
     regions = fold_h * fold_w
     g = kernels.mixer_cluster_size(heads, b * regions, dev)
     part = torch.empty((b, regions * g, 2), dtype=f32, device=dev)
-    assign = (torch.empty((b, h, w, heads), dtype=torch.int8, device=dev)
-              if return_assign else None)
+    per_token, centers = _residual_shapes(x, heads, wf.shape[1], fold_h, fold_w,
+                                          proposal_h, proposal_w)
+    assign = (torch.empty(per_token, dtype=torch.int8, device=dev)
+              if return_assign or return_residuals else None)
+    pack = None
+    if return_residuals:
+        pack = (torch.empty(per_token, dtype=x.dtype, device=dev), assign,
+                torch.empty(centers, dtype=x.dtype, device=dev),
+                torch.empty(centers, dtype=x.dtype, device=dev))
     kernels.mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out,
-                        part, assign, heads=heads, fold_h=fold_h,
-                        fold_w=fold_w, proposal_h=proposal_h,
-                        proposal_w=proposal_w)
+                        part, assign, pack, **kw)
     LAUNCHES["mixer_block"] += 1
     moments = part.sum(dim=1)
+    if return_residuals:
+        return out, moments, pack
     if return_assign:
         return out, moments, assign.permute(0, 3, 1, 2).long()
     return out, moments
@@ -229,33 +449,220 @@ def mlp_block(x, stats, w1, b1, w2, b2):
     return out
 
 
+def mlp_block_bwd(x, g, stats, w1, b1, w2):
+    """MLP-half backward on folded weights (K5).  x, g (B,H,W,C) bf16|f32 in
+    one dtype; w1 (C,hid) and w2 (hid,C) in x's dtype; b1 and stats (B,2)
+    f32.  Returns what `mlp_block_bwd_plain` returns.  The kernel writes one
+    row of weight-gradient partials per block; one torch sum reduces them
+    (no float atomics: two runs give the same bits)."""
+    if x.device.type == "cpu":
+        return mlp_block_bwd_plain(x, g, stats, w1, b1, w2)
+    if x.device.type != "cuda":
+        raise ValueError(f"mlp_block_bwd: unsupported device {x.device}")
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    b, h, w, c = x.shape
+    hid = w1.shape[1]
+    f32, dev = torch.float32, x.device
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"mlp_block_bwd: dtype {x.dtype} not supported")
+    _check("x", x, (b, h, w, c), x.dtype, dev)
+    _check("g", g, (b, h, w, c), x.dtype, dev)
+    _check("stats", stats, (b, 2), f32, dev)
+    _check("w1", w1, (c, hid), x.dtype, dev)
+    _check("b1", b1, (hid,), f32, dev)
+    _check("w2", w2, (hid, c), x.dtype, dev)
+    chunks = kernels.mlp_bwd_chunks(h * w, c, hid, x.dtype)
+    part = torch.empty((b * chunks, 2 * c * hid + hid + c + 2), dtype=f32, device=dev)
+    dxn = torch.empty_like(x)
+    kernels.mlp_block_bwd(x, g, stats, w1, b1, w2, dxn, part, chunks)
+    LAUNCHES["mlp_block_bwd"] += 1
+    tot = part[:, :-2].sum(0)
+    o = c * hid
+    return (dxn, tot[:o].view(c, hid), tot[2 * o:2 * o + hid], tot[o:2 * o].view(hid, c),
+            tot[2 * o + hid:], part[:, -2:].view(b, chunks, 2).sum(1))
+
+
+def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals, *,
+                    heads, fold_h, fold_w, proposal_h, proposal_w):
+    """Mixer-half backward on folded weights (K6), from the forward's
+    residual pack.  x, g (B,H,W,C) bf16|f32 in one dtype; wf/wv (C,I), w2
+    (I,C) in x's dtype; bf, bv, stats (B,2), alpha_beta (2,) f32.  Returns
+    what `mixer_block_bwd_plain` returns.  Partials (one row per block) are
+    reduced by torch sums (no float atomics: two runs give the same bits)."""
+    kw = dict(heads=heads, fold_h=fold_h, fold_w=fold_w,
+              proposal_h=proposal_h, proposal_w=proposal_w)
+    if x.device.type == "cpu":
+        return mixer_block_bwd_plain(x, g, stats, wf, bf, wv, bv, w2, alpha_beta,
+                                     residuals, **kw)
+    if x.device.type != "cuda":
+        raise ValueError(f"mixer_block_bwd: unsupported device {x.device}")
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    _check_mixer_args("mixer_block_bwd", x, stats, wf, bf, wv, bv, w2, alpha_beta,
+                      heads, fold_h, fold_w)
+    b, h, w, c = x.shape
+    inner = wf.shape[1]
+    f32, dev = torch.float32, x.device
+    _check("g", g, (b, h, w, c), x.dtype, dev)
+    per_token, centers = _residual_shapes(x, heads, inner, fold_h, fold_w,
+                                          proposal_h, proposal_w)
+    for name, t, shape, dtype in zip(("cbest", "argf", "c_rep", "oc"), residuals,
+                                     (per_token, per_token, centers, centers),
+                                     (x.dtype, torch.int8, x.dtype, x.dtype)):
+        _check(name, t, shape, dtype, dev)
+    regions = fold_h * fold_w
+    m = proposal_h * proposal_w
+    # head groups per region: each keeps an f32 dxn plane, so the backward
+    # fills only half the SMs before it splits a region further
+    groups = kernels.mixer_cluster_size(heads, b * regions, dev, fill=0.5)
+    tiles = kernels.mixer_bwd_tiles(h * w)
+    dxn = torch.empty_like(x)
+    scratch = torch.empty((groups, b, h, w, c), dtype=f32, device=dev)
+    dcin = torch.empty((b * regions, groups, m, c), dtype=f32, device=dev)
+    wpart = torch.empty((b * regions, 3 * c * inner + 2 * inner), dtype=f32, device=dev)
+    dab = torch.empty((b * regions * groups, 2), dtype=f32, device=dev)
+    epart = torch.empty((b, tiles, 2 + c), dtype=f32, device=dev)
+    kernels.mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals,
+                            dxn, scratch, dcin, wpart, dab, epart, groups=groups,
+                            tiles=tiles, **kw)
+    LAUNCHES["mixer_block_bwd"] += 1
+    tot = wpart.sum(0)
+    o = c * inner
+    return (dxn, tot[:o].view(c, inner), tot[3 * o:3 * o + inner], tot[o:2 * o].view(c, inner),
+            tot[3 * o + inner:], tot[2 * o:3 * o].view(inner, c), epart[..., 2:].sum((0, 1)),
+            dab.sum(0), epart[..., :2].sum(1))
+
+
 # ---------------------------------------------------------------------------
 # the entries ClusterBlock calls (counterparts of fused_mixer_block_stats and
-# fused_mlp_block_pre, lane_fold=1)
+# fused_mlp_block_pre, lane_fold=1) and their autograd Functions
 # ---------------------------------------------------------------------------
 
-def fused_mixer_block_stats(x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1,
-                            alpha, beta, heads, fold_h, fold_w, proposal_h,
-                            proposal_w):
-    """Mixer half from canonical params.  x NHWC; weights in (in, out) matmul
-    layout, f32.  Returns (out, gn_stats_of_out (B, 2))."""
+def _mixer_operands(x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1, alpha, beta):
+    """Folded kernel operands: (wf, bf, wv, bv, w2, b2, alpha_beta), matmul
+    weights in x's dtype, the rest f32."""
     f32, dt = torch.float32, x.dtype
     wf_e, bf_e = _fold_in(gn_scale, gn_bias, wf, bf)
     wv_e, bv_e = _fold_in(gn_scale, gn_bias, wv, bv)
     w2_e, b2_e = _fold_out(w2, b2, ls1)
     alpha_beta = torch.stack([alpha.reshape(()), beta.reshape(())]).to(f32)
-    out, moments = mixer_block(
-        x, gn1_stats(x), wf_e.to(dt).contiguous(), bf_e.to(f32),
-        wv_e.to(dt).contiguous(), bv_e.to(f32), w2_e.to(dt).contiguous(),
-        b2_e.to(f32), alpha_beta, heads=heads, fold_h=fold_h, fold_w=fold_w,
-        proposal_h=proposal_h, proposal_w=proposal_w)
+    return (wf_e.to(dt).contiguous(), bf_e.to(f32), wv_e.to(dt).contiguous(),
+            bv_e.to(f32), w2_e.to(dt).contiguous(), b2_e.to(f32), alpha_beta)
+
+
+def _mlp_operands(x, gn_scale, gn_bias, w1, b1, w2, b2, ls2):
+    f32, dt = torch.float32, x.dtype
+    w1_e, b1_e = _fold_in(gn_scale, gn_bias, w1, b1)
+    w2_e, b2_e = _fold_out(w2, b2, ls2)
+    return (w1_e.to(dt).contiguous(), b1_e.to(f32), w2_e.to(dt).contiguous(),
+            b2_e.to(f32))
+
+
+def _gn_input_grad(x, g, stats, dxn, sums):
+    """GroupNorm(1) input gradient plus the residual path (`_fused_*_bwd`
+    phase 2 of the JAX package), from the kernel's per-sample sums:
+    dx = g + rstd * (dxn - mean(dxn) - xn * mean(dxn * xn))."""
+    n = x[0].numel()
+    rstd = stats[:, 1, None, None, None]
+    m1 = (sums[:, 0] / n)[:, None, None, None]
+    m2 = (sums[:, 1] / n)[:, None, None, None]
+    return (g.float() + rstd * (dxn.float() - m1 - _normalise(x, stats) * m2)).to(x.dtype)
+
+
+def _unfold_in(gn_scale, gn_bias, w, dw_e, db_e):
+    """Gradients through w_e = gs[:,None]*w, b_e = gb @ w + b: (dw, dgs, dgb);
+    db = db_e."""
+    return (gn_scale[:, None] * dw_e + gn_bias[:, None] * db_e[None, :],
+            (dw_e * w).sum(1), w @ db_e)
+
+
+def _unfold_out(w, b, ls, dw_e, db_e):
+    """Gradients through w_e = w*ls, b_e = b*ls: (dw, db, dls)."""
+    return dw_e * ls[None, :], db_e * ls, (dw_e * w).sum(0) + db_e * b
+
+
+class _FusedMixerBlockStats(torch.autograd.Function):
+    """`fused_mixer_block_stats` under autograd: the train forward (K2 with
+    its residual pack) and `_fused_mixer_block_bwd` of the JAX package (K6,
+    then the unfold and the GroupNorm input gradient in torch).  The stats
+    output is not differentiable: it only feeds the chained MLP half, whose
+    backward rebuilds the stats' dependence on x analytically."""
+
+    @staticmethod
+    def forward(ctx, x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1, alpha, beta, geo):
+        stats = gn1_stats(x)
+        ops = _mixer_operands(x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1, alpha, beta)
+        out, moments, pack = mixer_block(x, stats, *ops, return_residuals=True, **geo)
+        ostats = _stats_from_moments(moments, x[0].numel())
+        ctx.geo = geo
+        ctx.save_for_backward(x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1,
+                              alpha, beta, stats, *pack)
+        ctx.mark_non_differentiable(ostats)
+        return out, ostats
+
+    @staticmethod
+    def backward(ctx, g, _gstats):
+        (x, gs, gb, wf, bf, wv, bv, w2, b2, ls1, alpha, beta, stats,
+         *pack) = ctx.saved_tensors
+        wf_e, bf_e, wv_e, bv_e, w2_e, _, ab = _mixer_operands(
+            x, gs, gb, wf, bf, wv, bv, w2, b2, ls1, alpha, beta)
+        g = g.to(x.dtype).contiguous()
+        dxn, dwf_e, dbf_e, dwv_e, dbv_e, dw2_e, db2_e, dab, sums = mixer_block_bwd(
+            x, g, stats, wf_e, bf_e, wv_e, bv_e, w2_e, ab, pack, **ctx.geo)
+        dwf, dgs, dgb = _unfold_in(gs, gb, wf, dwf_e, dbf_e)
+        dwv, dgs_v, dgb_v = _unfold_in(gs, gb, wv, dwv_e, dbv_e)
+        dw2, db2, dls1 = _unfold_out(w2, b2, ls1, dw2_e, db2_e)
+        return (_gn_input_grad(x, g, stats, dxn, sums), dgs + dgs_v, dgb + dgb_v, dwf,
+                dbf_e, dwv, dbv_e, dw2, db2, dls1, dab[0].reshape(alpha.shape),
+                dab[1].reshape(beta.shape), None)
+
+
+class _FusedMlpBlockPre(torch.autograd.Function):
+    """`fused_mlp_block_pre` under autograd: K1 forward, and
+    `_fused_mlp_block_bwd` of the JAX package (K5, then the unfold and the
+    GroupNorm input gradient in torch).  No gradient flows to the stats."""
+
+    @staticmethod
+    def forward(ctx, x, stats, gn_scale, gn_bias, w1, b1, w2, b2, ls2):
+        ctx.save_for_backward(x, stats, gn_scale, gn_bias, w1, b1, w2, b2, ls2)
+        return mlp_block(x, stats, *_mlp_operands(x, gn_scale, gn_bias, w1, b1, w2, b2, ls2))
+
+    @staticmethod
+    def backward(ctx, g):
+        x, stats, gs, gb, w1, b1, w2, b2, ls2 = ctx.saved_tensors
+        w1_e, b1_e, w2_e, _ = _mlp_operands(x, gs, gb, w1, b1, w2, b2, ls2)
+        g = g.to(x.dtype).contiguous()
+        dxn, dw1_e, db1_e, dw2_e, db2_e, sums = mlp_block_bwd(x, g, stats, w1_e, b1_e, w2_e)
+        dw1, dgs, dgb = _unfold_in(gs, gb, w1, dw1_e, db1_e)
+        dw2, db2, dls2 = _unfold_out(w2, b2, ls2, dw2_e, db2_e)
+        return (_gn_input_grad(x, g, stats, dxn, sums), None, dgs, dgb, dw1, db1_e, dw2,
+                db2, dls2)
+
+
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def fused_mixer_block_stats(x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1,
+                            alpha, beta, heads, fold_h, fold_w, proposal_h,
+                            proposal_w):
+    """Mixer half from canonical params.  x NHWC; weights in (in, out) matmul
+    layout, f32.  Returns (out, gn_stats_of_out (B, 2)).  Differentiable in
+    x and every parameter; without autograd it writes no residuals."""
+    args = (x, gn_scale, gn_bias, wf, bf, wv, bv, w2, b2, ls1, alpha, beta)
+    geo = dict(heads=heads, fold_h=fold_h, fold_w=fold_w, proposal_h=proposal_h,
+               proposal_w=proposal_w)
+    if _needs_grad(*args):
+        return _FusedMixerBlockStats.apply(*args, geo)
+    out, moments = mixer_block(x, gn1_stats(x), *_mixer_operands(*args), **geo)
     return out, _stats_from_moments(moments, x[0].numel())
 
 
 def fused_mlp_block_pre(x, stats, gn_scale, gn_bias, w1, b1, w2, b2, ls2):
-    """MLP half from canonical params and pre-reduced stats of x (NHWC)."""
-    f32, dt = torch.float32, x.dtype
-    w1_e, b1_e = _fold_in(gn_scale, gn_bias, w1, b1)
-    w2_e, b2_e = _fold_out(w2, b2, ls2)
-    return mlp_block(x, stats, w1_e.to(dt).contiguous(), b1_e.to(f32),
-                     w2_e.to(dt).contiguous(), b2_e.to(f32))
+    """MLP half from canonical params and pre-reduced stats of x (NHWC).
+    Differentiable in x and every parameter, not in the stats."""
+    args = (x, stats, gn_scale, gn_bias, w1, b1, w2, b2, ls2)
+    if _needs_grad(*args):
+        return _FusedMlpBlockPre.apply(*args)
+    return mlp_block(x, stats, *_mlp_operands(x, gn_scale, gn_bias, w1, b1, w2, b2, ls2))

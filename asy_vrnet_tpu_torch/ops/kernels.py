@@ -1,8 +1,9 @@
 """Build, load and launch the CUDA kernels in `asy_vrnet_tpu_torch/csrc/`.
 
-Five sources: the two fused ClusterBlock halves (mixer_block, mlp_block), the
-fused seg-loss forward and backward (seg_loss_sums, seg_loss_dlogits) and
-SimOTA (simota_assign).  Each source is compiled by nvcc into a shared
+Seven sources: the two fused ClusterBlock halves (mixer_block, mlp_block) and
+their backward passes (mixer_block_bwd, mlp_block_bwd), the fused seg-loss
+forward and backward (seg_loss_sums, seg_loss_dlogits) and SimOTA
+(simota_assign).  Each source is compiled by nvcc into a shared
 library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`),
 loaded with ctypes, at first use; all sources build in parallel.  Libraries
 land in
@@ -28,8 +29,8 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("mixer_block", "mlp_block", "seg_loss_sums", "seg_loss_dlogits",
-           "simota_assign")
+SOURCES = ("mixer_block", "mlp_block", "mixer_block_bwd", "mlp_block_bwd",
+           "seg_loss_sums", "seg_loss_dlogits", "simota_assign")
 HEADERS = ("common.cuh", "seg_loss.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
@@ -45,8 +46,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
-    "mixer_block": [_P] * 12 + [_I] * 11 + [_P],
+    "mixer_block": [_P] * 15 + [_I] * 11 + [_P],
     "mlp_block": [_P] * 7 + [_I] * 4 + [_P],
+    "mixer_block_bwd": [_P] * 19 + [_I] * 12 + [_P],
+    "mlp_block_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
     "seg_loss_dlogits": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
     "simota_assign": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
@@ -142,27 +145,79 @@ def _call(name: str, x: torch.Tensor, *args) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {msg} (code {err})")
 
 
-def mixer_cluster_size(heads: int, regions: int, device: torch.device) -> int:
+def mixer_cluster_size(heads: int, regions: int, device: torch.device,
+                       fill: float = 1.0) -> int:
     """CTAs per region (one thread-block cluster, split by heads).  Splitting
-    pays only when the batch has fewer regions than the card has SMs (every
-    CTA of a cluster re-reads its whole region): then the smallest divisor of
-    `heads` (at most 8, the portable cluster size) that gives each SM a
-    block, or the largest such divisor."""
+    pays only when the batch has fewer regions than `fill` times the card's
+    SMs (every CTA of a cluster re-reads its whole region): then the smallest
+    divisor of `heads` (at most 8, the portable cluster size) that gives that
+    many blocks, or the largest such divisor."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     divisors = [d for d in range(1, 9) if heads % d == 0]
-    return next((d for d in divisors if regions * d >= sms), divisors[-1])
+    return next((d for d in divisors if regions * d >= fill * sms), divisors[-1])
 
 
 def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, assign,
-                *, heads, fold_h, fold_w, proposal_h, proposal_w) -> None:
+                pack, *, heads, fold_h, fold_w, proposal_h, proposal_w) -> None:
     """Launch the mixer-half kernel; tensors are checked by the caller.
     `part` is (B, fold_h * fold_w * G, 2) with G = part.shape[1] // (fold_h *
-    fold_w) CTAs per region (see mixer_cluster_size)."""
+    fold_w) CTAs per region (see mixer_cluster_size).  `assign` (int8) and
+    `pack` (cbest, assign, c_rep, oc) may be None."""
     b, h, w, c = x.shape
+    cbest, _, crep, oc = pack if pack is not None else (None,) * 4
     _call("mixer_block", x, _ptr(x), _ptr(stats), _ptr(wf), _ptr(bf), _ptr(wv),
           _ptr(bv), _ptr(w2), _ptr(b2), _ptr(alpha_beta), _ptr(out), _ptr(part),
-          _ptr(assign), b, h, w, c, wf.shape[1], heads, fold_h, fold_w,
-          proposal_h, proposal_w, part.shape[1] // (fold_h * fold_w))
+          _ptr(assign), _ptr(cbest), _ptr(crep), _ptr(oc), b, h, w, c, wf.shape[1],
+          heads, fold_h, fold_w, proposal_h, proposal_w,
+          part.shape[1] // (fold_h * fold_w))
+
+
+# tokens per block of the MLP backward.  Tensor-core path (bf16, C % 16 == 0,
+# C <= 160, hid % 32 == 0, H*W % 128 == 0): 128.  Otherwise the FMA path: its
+# chunk's f32 dxn (tokens x C) stays in shared memory, at most this many
+# floats.  Mirrors `mma_path` and `launch` in csrc/mlp_block_bwd.cu.
+_MLP_BWD_MMA_TOKENS = 128
+_MLP_BWD_CHUNK_FLOATS = 16384
+_MLP_BWD_SUB = 32
+# tokens per block of the mixer backward's epilogue (kTile in the source)
+_MIXER_BWD_TILE = 256
+
+
+def mlp_bwd_chunks(hw: int, c: int, hid: int, dtype: torch.dtype) -> int:
+    """Blocks per sample of the MLP backward (each takes ceil(hw/chunks)
+    tokens of one sample)."""
+    if (dtype == torch.bfloat16 and c % 16 == 0 and c <= 160 and hid % 32 == 0
+            and hw % _MLP_BWD_MMA_TOKENS == 0):
+        return hw // _MLP_BWD_MMA_TOKENS
+    tt = max(_MLP_BWD_SUB, (_MLP_BWD_CHUNK_FLOATS // c) // _MLP_BWD_SUB * _MLP_BWD_SUB)
+    return -(-hw // tt)
+
+
+def mixer_bwd_tiles(hw: int) -> int:
+    """Epilogue blocks per sample of the mixer backward."""
+    return -(-hw // _MIXER_BWD_TILE)
+
+
+def mlp_block_bwd(x, g, stats, w1, b1, w2, dxn, part, chunks) -> None:
+    """Launch the MLP-half backward kernel; tensors are checked by the caller.
+    `part` is (B * chunks, 2*C*hid + hid + C + 2) f32."""
+    b, h, w, c = x.shape
+    _call("mlp_block_bwd", x, _ptr(x), _ptr(g), _ptr(stats), _ptr(w1), _ptr(b1),
+          _ptr(w2), _ptr(dxn), _ptr(part), b, h * w, c, w1.shape[1], chunks)
+
+
+def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, pack, dxn, scratch,
+                    dcin, wpart, dab, epart, *, groups, tiles, heads, fold_h, fold_w,
+                    proposal_h, proposal_w) -> None:
+    """Launch the two mixer-half backward kernels (per region and head group,
+    then the dxn epilogue); tensors are checked by the caller."""
+    b, h, w, c = x.shape
+    cbest, argf, crep, oc = pack
+    _call("mixer_block_bwd", x, _ptr(x), _ptr(g), _ptr(stats), _ptr(wf), _ptr(bf),
+          _ptr(wv), _ptr(bv), _ptr(w2), _ptr(alpha_beta), _ptr(cbest), _ptr(argf),
+          _ptr(crep), _ptr(oc), _ptr(dxn), _ptr(scratch), _ptr(dcin), _ptr(wpart),
+          _ptr(dab), _ptr(epart), b, h, w, c, wf.shape[1], heads, fold_h, fold_w,
+          proposal_h, proposal_w, groups, tiles)
 
 
 def mlp_block(x, stats, w1, b1, w2, b2, out) -> None:

@@ -27,22 +27,35 @@ Phases (each raises on failure; nothing is caught):
      SimOTA kernel against its twin at B = 16, A = 5376, G = 100 with 0, 1, 7
      and 100 valid GTs, on the r05 model's head outputs plus seeded noise, and
      on a constructed case with duplicated GT boxes and duplicated anchors;
-  7. train path: r05 weights, `create_train_state`, 5 steps on seeded
-     `make_batch` batches at 512^2, batch 16, bf16, module-path blocks, lr
-     from `adaptive_lr`; launch counters reset before the first step and read
-     after it (seg_loss_sums 1, seg_loss_dlogits 1, simota_assign >= 1, the
-     block kernels 0); losses finite, num_fg > 0, parameters, EMA and BN
-     running stats moved; the same first step through the plain twins from
-     the same start; a 30-step overfit of one 128^2 batch in f32; step time,
-     images/s, peak memory, device-busy share and launches per step.
+  7. kernels, block backward at the train batch: at the 7 ClusterBlock
+     shapes with batch 16, bf16 and f32, K2's residual pack (winning cosine
+     and proposal per (token, head), raw and mixed centers) against the
+     twin's, the MLP-half backward kernel (K5) against its twin, and the
+     mixer-half backward kernel (K6) against its twin with both fed the
+     kernel's pack; two runs of each give equal bits; times and bounds;
+  8. train path (the main path): r05 weights, `create_train_state`, 5 steps
+     on seeded `make_batch` batches at 512^2, batch 16, bf16, fused
+     ClusterBlocks (`use_pallas_cluster=True`, the JAX package's default),
+     lr from `adaptive_lr`; launch counters reset before the first step and
+     read after it (mixer_block, mlp_block, mixer_block_bwd, mlp_block_bwd 27
+     each, seg_loss_sums 1, seg_loss_dlogits 1, simota_assign >= 1); losses
+     finite, num_fg > 0, parameters, EMA and BN running stats moved; the same
+     first step through the plain twins from the same start;
+  9. the module-path train step (`use_pallas_cluster=False`, every block
+     eager torch with plain autograd): 2 steps from the same start and
+     batches, the same checks with the block kernels at 0 launches; its first
+     step against the fused path's;
+ 10. a 30-step overfit of one 128^2 batch in f32 through the fused path;
+     step time, images/s, peak memory, device-busy share, launches per step
+     and device ms by category for the fused and the module-path step.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
     or 1e-5 * max(1, max|out|) (MLP), assignment agreement >= 99.99%: the
     same formula in f32, sums in another order.
-  kernel vs plain, bf16: the kernel rounds intermediates to bf16 where the
-    TPU kernel does, the plain twin where the JAX package's module reference
-    does, so near-tied assignments flip: mixer agreement >= 99%, mean |diff|
+  kernel vs plain, bf16: both round intermediates to bf16 where the TPU
+    kernel does, but sum in another order, so a bf16 rounding can land on
+    the other side and near-tied assignments flip: mixer agreement >= 99%, mean |diff|
     <= 2% of max|y|, max |diff| <= max|y| + 2 bf16 ulps; MLP within 2 bf16
     ulps of max|out|.
   512^2 bf16 forward, kernels vs plain twins: every output finite with the
@@ -59,14 +72,30 @@ Tolerances:
     GT; otherwise fg agreement >= 99.9% of anchors, matched GT equal where
     both are fg, IoU atol 1e-5, num_fg within 1% (libm's last ulp can flip a
     near-tie).
+  block backward vs plain twins (the same residual pack fed to both), f32:
+    every output within 1e-4 * max(1, max |ref|); the pack's fields within
+    1e-4 * max(1, max |ref|) and its assignment 100% equal.  bf16: dxn
+    within 2 bf16 ulps of max |ref|; the summed weight, bias and alpha/beta
+    gradients within 2% of max |ref|; the per-sample GroupNorm sums within
+    1e-3 of sum |dxn| (they cancel); the pack: assignment >= 99% equal
+    (near-ties flip, as in the forward), c_rep within 2% of max |ref|, the
+    winning cosine within 2% where the assignment agrees, mean |d oc| within
+    2% of max |ref|.
   train step, kernels vs plain twins: loss, loss_det, loss_seg within 2%
-    relative, num_fg within 1%.
+    relative, num_fg within 1% or one anchor, whichever is more: the
+    kernels' and the twins' bf16 forwards differ in the last place here and
+    there, which can move one anchor across SimOTA's dynamic-k cut (one of
+    ~75 fg anchors is 1.3%); fused vs module path: the losses within 2%.
 Bounds: max(flops / peak, bytes / 3.35 TB/s), flops and bytes counted from
 this run's shapes and data (each input read once, each output written once).
-The peak is 989 TFLOP/s (dense bf16 tensor cores) for the two block kernels
+The peak is 989 TFLOP/s (dense bf16 tensor cores) for the four block kernels
 and 67 TFLOP/s (f32 on CUDA cores; NVIDIA's H100 SXM data sheet) for the
-seg-loss and SimOTA kernels, which have no matrix product.  No single PyTorch
-call computes any of the five kernels: library_ms is null.
+seg-loss and SimOTA kernels, which have no matrix product.  The backward
+bounds count the products the math needs: K5 8*C*hid flops per token
+(g @ w2^T, dz1 @ w1^T, both weight gradients; z1's recompute is not
+counted), K6 6*C*I per token (feat, d feat @ wf^T, dWf) plus the per
+(token, head) winner terms.  No single PyTorch call computes any of the
+seven kernels: library_ms is null.
 """
 import copy
 import json
@@ -95,6 +124,12 @@ KERNELS = {
                         replaces="asy_vrnet_tpu/ops/block_pallas.py:583"),
     "mlp_block": dict(source="asy_vrnet_tpu_torch/csrc/mlp_block.cu",
                       replaces="asy_vrnet_tpu/ops/block_pallas.py:2022"),
+}
+BWD_KERNELS = {
+    "mixer_block_bwd": dict(source="asy_vrnet_tpu_torch/csrc/mixer_block_bwd.cu",
+                            replaces="asy_vrnet_tpu/ops/block_pallas.py:1556"),
+    "mlp_block_bwd": dict(source="asy_vrnet_tpu_torch/csrc/mlp_block_bwd.cu",
+                          replaces="asy_vrnet_tpu/ops/block_pallas.py:2197"),
 }
 TRAIN_KERNELS = {
     "seg_loss_sums": dict(source="asy_vrnet_tpu_torch/csrc/seg_loss_sums.cu",
@@ -144,6 +179,26 @@ def mixer_bounds(b, h, w, c, heads, d, fold):
 def mlp_bounds(b, h, w, c, hid):
     t = b * h * w
     return 4 * t * c * hid, 2 * t * c * 2 + 2 * c * hid * 2
+
+
+def mixer_bwd_bounds(b, h, w, c, heads, d, fold, m=4):
+    """Per token: feat, d feat @ wf^T and dWf (6*C*I), the winner's d sim,
+    the dispatch and the sim-weighted sums (10*C per head), the norms (4*I),
+    the pooling (2*C).  Bytes: x, g, dxn (bf16), the pack (cosine bf16 +
+    proposal int8 per (token, head); two center sets), wf, wv, w2 (bf16),
+    the f32 weight gradients."""
+    t, inner, regions = b * h * w, heads * d, b * fold * fold
+    flops = t * (6 * c * inner + 10 * c * heads + 4 * inner + 2 * c)
+    byts = (3 * t * c * 2 + 3 * t * heads + 2 * regions * heads * m * d * 2
+            + 3 * c * inner * 2 + (3 * c * inner + 2 * inner + c) * 4)
+    return flops, byts
+
+
+def mlp_bwd_bounds(b, h, w, c, hid):
+    """Per token 8*C*hid flops; bytes: x, g, dxn (bf16), w1, w2 (bf16), the
+    f32 weight gradients."""
+    t = b * h * w
+    return 8 * t * c * hid, 3 * t * c * 2 + 2 * c * hid * 2 + (2 * c * hid + hid + c) * 4
 
 
 def bound_ms(flops, byts, peak=PEAK_FLOPS):
@@ -215,6 +270,8 @@ def iou(a, b):
 
 
 CATEGORIES = (
+    ("mixer_block_bwd (ours)", ("mixer_bwd",)),
+    ("mlp_block_bwd (ours)", ("mlp_block_bwd",)),
     ("mixer_block (ours)", ("mixer_block",)),
     ("mlp_block (ours)", ("mlp_block",)),
     ("seg_loss (ours)", ("seg_loss",)),
@@ -440,7 +497,8 @@ def main() -> int:
     for hk in hooks:
         hk.remove()
     log(f"[main path] launches {launches}")
-    check(launches == {"mixer_block": 27, "mlp_block": 27}, launches)
+    check(launches == {"mixer_block": 27, "mlp_block": 27, "mixer_block_bwd": 0,
+                       "mlp_block_bwd": 0}, launches)
     want = {(b, c, h, w, heads, d, fold) for (_, b, h, w, c, heads, d, fold, _, _) in SHAPES}
     check({s + (hd, dd, f) for s, hd, dd, f in seen} == want, seen)
     check([tuple(o.shape) for o in det] == [(8, 64, 64, 9), (8, 32, 32, 9), (8, 16, 16, 9)],
@@ -506,7 +564,8 @@ def main() -> int:
             f"ground truth {gt}; matched at IoU 0.5 {hits}")
     log(f"[detector] launches over 4 requests {dict(block.LAUNCHES)}; "
         f"recall@0.5 {found}/{total}")
-    check(block.LAUNCHES == {"mixer_block": 108, "mlp_block": 108}, dict(block.LAUNCHES))
+    check(block.LAUNCHES == {"mixer_block": 108, "mlp_block": 108, "mixer_block_bwd": 0,
+                             "mlp_block_bwd": 0}, dict(block.LAUNCHES))
     check(found >= 0.5 * total, f"recall {found}/{total}")
 
     # ---- 5. timing ----
@@ -675,118 +734,289 @@ def main() -> int:
                                         max_abs_err=iou_err, fg_agreement=agree)
     del sim_args, tie, outs, det16
 
-    # ---- 7. train path: r05 weights, 512^2, batch 16, bf16, 5 steps ----
-    tcfg = Config(
-        model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
-                          input_size=(512, 512), seg_signed_logits=True,
-                          use_pallas_cluster=False),
-        loss=LossConfig(max_boxes=MAX_BOXES, use_pallas_seg=True))
-    state = create_train_state(tcfg, weights=R05)                    # the card by default
-    lr, _ = adaptive_lr(tcfg.optim, TRAIN_BATCH)
-    set_learning_rate(state.optimizer, lr)
-    train_step = build_train_step(tcfg)                              # the card by default
+    # ---- 7. block backward kernels vs twins at the train batch ----
+    bwd_stats = {k: {"max_abs_err": 0.0, "per_shape": []} for k in BWD_KERNELS}
+    bwd_inputs = {}
+    pack_agreement = []
+    g = torch.Generator().manual_seed(7)
+
+    def close(kname, name, got, want, dt, dxn_ref):
+        """Log and check one backward output against its twin (tolerances in
+        the docstring); returns max |diff|."""
+        got, want = got.float(), want.float()
+        scale = want.abs().max().item()
+        err = (got - want).abs().max().item()
+        if dt == torch.float32:
+            ok = err <= 1e-4 * max(1.0, scale)
+        elif name == "dxn":
+            ok = err <= 2 * bf16_ulp(scale)
+        elif name == "sums":
+            ok = bool(((got - want).abs() <= 1e-3 * dxn_ref.float().abs().sum(
+                dim=(1, 2, 3))[:, None]).all())
+        else:
+            ok = err <= 0.02 * max(scale, 1e-6)
+        if not ok:
+            log(f"[check {kname} {str(dt)[6:]}] {name}: max|diff| {err:.4e} max|ref| {scale:.4e}")
+        check(ok, f"{kname} {name} {str(dt)[6:]}")
+        return err
+
+    for (name, _, h, w, c, heads, d, fold, hid, _) in SHAPES:
+        b, inner = TRAIN_BATCH, heads * d
+        mixer_w = (rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
+                   rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
+                   rn(inner, c, scale=inner ** -0.5), rn(c, scale=0.1),
+                   torch.tensor([1.5, 0.2]))
+        mlp_w = (rn(c, hid, scale=c ** -0.5), rn(hid, scale=0.1),
+                 rn(hid, c, scale=hid ** -0.5), rn(c, scale=0.1))
+        x32, g32 = rn(b, h, w, c), rn(b, h, w, c, scale=0.5)
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{name} {str(dt)[6:]}"
+            x, gy = x32.to(dev, dt), g32.to(dev, dt)
+            st = block.gn1_stats(x)
+            mw, lw = cast(mixer_w, dt), cast(mlp_w, dt)
+            _, _, pack = block.mixer_block(x, st, *mw, return_residuals=True, **kw)
+            again = block.mixer_block(x, st, *mw, return_residuals=True, **kw)[2]
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(pack, again)), f"pack bits {tag}")
+            _, _, rpack = block.mixer_block_plain(x, st, *mw, return_residuals=True, **kw)
+            same = pack[1] == rpack[1]
+            agree = same.float().mean().item()
+            errs = [(pack[i].float() - rpack[i].float()).abs() for i in (0, 2, 3)]
+            scales = [rpack[i].float().abs().max().item() for i in (0, 2, 3)]
+            log(f"[check residual pack {tag}] assignment agreement {agree:.6f}, max|diff| "
+                f"cbest {errs[0].max().item():.3e} c_rep {errs[1].max().item():.3e} "
+                f"oc {errs[2].max().item():.3e} (max|ref| {scales[0]:.3f} {scales[1]:.3f} "
+                f"{scales[2]:.3f})")
+            if dt == torch.float32:
+                check(agree == 1.0, f"pack assignment {tag}")
+                for e, sc in zip(errs, scales):
+                    check(e.max().item() <= 1e-4 * max(1.0, sc), f"pack {tag}")
+            else:
+                pack_agreement.append(agree)
+                check(agree >= 0.99, f"pack assignment {tag}")
+                check((errs[0] * same).max().item() <= 0.02 * scales[0], f"pack cbest {tag}")
+                check(errs[1].max().item() <= 0.02 * scales[1], f"pack c_rep {tag}")
+                check(errs[2].mean().item() <= 0.02 * scales[2], f"pack oc {tag}")
+            wf, bf, wv, bv, w2, _, ab = mw
+            margs = (x, gy, st, wf, bf, wv, bv, w2, ab, pack)
+            got = block.mixer_block_bwd(*margs, **kw)
+            again = block.mixer_block_bwd(*margs, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K6 bits {tag}")
+            want = block.mixer_block_bwd_plain(*margs, **kw)
+            names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
+            merr = [close("mixer_block_bwd", n, a, r, dt, want[0])
+                    for n, a, r in zip(names, got, want)]
+            w1, b1, w2m, _ = lw
+            largs = (x, gy, st, w1, b1, w2m)
+            got = block.mlp_block_bwd(*largs)
+            again = block.mlp_block_bwd(*largs)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K5 bits {tag}")
+            want = block.mlp_block_bwd_plain(*largs)
+            names = ("dxn", "dw1", "db1", "dw2", "db2", "sums")
+            lerr = [close("mlp_block_bwd", n, a, r, dt, want[0])
+                    for n, a, r in zip(names, got, want)]
+            log(f"[check mixer_block_bwd {tag}] max|diff| dxn {merr[0]:.3e} dwf {merr[1]:.3e} "
+                f"dwv {merr[3]:.3e} dw2 {merr[5]:.3e} dalpha/beta {merr[7]:.3e}; "
+                f"[check mlp_block_bwd {tag}] dxn {lerr[0]:.3e} dw1 {lerr[1]:.3e} "
+                f"dw2 {lerr[3]:.3e}")
+            if dt == torch.bfloat16:
+                for kname, e in (("mixer_block_bwd", merr[0]), ("mlp_block_bwd", lerr[0])):
+                    bwd_stats[kname]["max_abs_err"] = max(bwd_stats[kname]["max_abs_err"], e)
+                bwd_inputs[name] = (margs, largs, kw)
+
+    for kname in BWD_KERNELS:
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0}
+        for (name, _, h, w, c, heads, d, fold, hid, calls) in SHAPES:
+            margs, largs, kw = bwd_inputs[name]
+            if kname == "mixer_block_bwd":
+                fk = lambda: block.mixer_block_bwd(*margs, **kw)          # noqa: E731
+                fp = lambda: block.mixer_block_bwd_plain(*margs, **kw)    # noqa: E731
+                flops, byts = mixer_bwd_bounds(TRAIN_BATCH, h, w, c, heads, d, fold)
+            else:
+                fk = lambda: block.mlp_block_bwd(*largs)                  # noqa: E731
+                fp = lambda: block.mlp_block_bwd_plain(*largs)            # noqa: E731
+                flops, byts = mlp_bwd_bounds(TRAIN_BATCH, h, w, c, hid)
+            ms, pms = cuda_ms(fk, 10), cuda_ms(fp, 2, warmup=1)
+            bms, by = bound_ms(flops, byts)
+            log(f"[time {kname} {name} bs={TRAIN_BATCH}] kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                f"bound {bms:.5f} ms ({by}), x{calls} per step")
+            bwd_stats[kname]["per_shape"].append(
+                {"shape": name, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                 "bound_by": by, "calls_per_step": calls})
+            tot["ms"] += calls * ms
+            tot["plain_ms"] += calls * pms
+            tot["bound_ms"] += calls * bms
+            tot["flops_ms"] += calls * flops / PEAK_FLOPS * 1e3
+            tot["bytes_ms"] += calls * byts / PEAK_BYTES * 1e3
+        bwd_stats[kname].update(
+            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+            bound_by="operations" if tot["flops_ms"] >= tot["bytes_ms"] else "bytes")
+    del bwd_inputs
+
+    # ---- 8./9. train paths: r05 weights, 512^2, batch 16, bf16 ----
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(
         np.random.default_rng(70 + i), TRAIN_BATCH, (512, 512), max_boxes=MAX_BOXES).items()}
         for i in range(5)]
-    start = copy.deepcopy(state)
-    before = {k: v.clone() for k, v in float_state(state.model).items()}
-    ema_before = {k: v.clone() for k, v in state.ema.items()}
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches(block, segf, simota_fused)
-    state, first = train_step(state, batches[0])
-    torch.cuda.synchronize()
-    train_launches = {**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}
-    log(f"[train path] launches in one step {train_launches}")
-    check(train_launches == {"mixer_block": 0, "mlp_block": 0, "seg_loss_sums": 1,
-                             "seg_loss_dlogits": 1, "simota_assign": 1}, train_launches)
-    history = [{k: float(v) for k, v in first.items()}]
-    for b in batches[1:]:
-        state, m = train_step(state, b)
-        history.append({k: float(v) for k, v in m.items()})
-    train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    for i, m in enumerate(history):
-        log(f"[train path] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
-        check(all(np.isfinite(v) for v in m.values()) and m["num_fg"] > 0, f"step {i + 1}")
-    after = float_state(state.model)
-    moved = lambda keys, a, b: sum(not torch.equal(a[k], b[k]) for k in keys)  # noqa: E731
-    names = [n for n, _ in state.model.named_parameters()]
-    stats = [k for k in before if k.endswith(("running_mean", "running_var"))]
-    log(f"[train path] moved: {moved(names, before, after)}/{len(names)} parameters, "
-        f"{moved(stats, before, after)}/{len(stats)} BN running stats, "
-        f"{moved(list(ema_before), ema_before, state.ema)}/{len(ema_before)} EMA entries; "
-        f"step {state.step}, ema_updates {state.ema_updates}, lr {lr}")
-    still = [k for k in names if torch.equal(before[k], after[k])]
-    log(f"[train path] parameters that kept their bits: {still}")
-    # a few decay-free entries rightly stay: their update lr * grad is below
-    # one f32 ulp of the value (norm weights and alpha behind a LayerScale of
-    # ~1e-5, a conv bias in front of a batch-stat BatchNorm)
-    check(moved(names, before, after) >= 0.9 * len(names), "the parameters moved")
-    check(moved(stats, before, after) == len(stats), "every BN running stat moved")
-    check(moved(list(ema_before), ema_before, state.ema) >= 0.9 * len(ema_before),
-          "the EMA moved")
-    check(state.step == 5 and state.ema_updates == 5.0, "counters")
-    del before, ema_before
+    plain_of = [(block, "mixer_block", block.mixer_block_plain),
+                (block, "mlp_block", block.mlp_block_plain),
+                (block, "mixer_block_bwd", block.mixer_block_bwd_plain),
+                (block, "mlp_block_bwd", block.mlp_block_bwd_plain),
+                (segf, "seg_loss_sums", segf.seg_sums_plain),
+                (segf, "seg_loss_dlogits", segf.seg_dlogits_plain),
+                (simota_fused, "_kernel_batched", simota_fused._plain_batched)]
 
-    # the same first step through the plain twins, from the same start
-    swapped = (segf.seg_loss_sums, segf.seg_loss_dlogits, simota_fused._kernel_batched)
-    segf.seg_loss_sums, segf.seg_loss_dlogits = segf.seg_sums_plain, segf.seg_dlogits_plain
-    simota_fused._kernel_batched = simota_fused._plain_batched
-    reset_launches(block, segf, simota_fused)
-    try:
-        _, plain_first = train_step(start, batches[0])
+    def run_train(tag, fused, steps):
+        """`steps` train steps from the r05 weights; launch counts of the
+        first; parameters, EMA and BN stats moved; the same first step
+        through the plain twins.  -> (state, step fn, history, launches,
+        peak GiB)."""
+        tcfg = Config(
+            model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+                              input_size=(512, 512), seg_signed_logits=True,
+                              use_pallas_cluster=fused),
+            loss=LossConfig(max_boxes=MAX_BOXES, use_pallas_seg=True))
+        state = create_train_state(tcfg, weights=R05)                # the card by default
+        lr, _ = adaptive_lr(tcfg.optim, TRAIN_BATCH)
+        set_learning_rate(state.optimizer, lr)
+        step = build_train_step(tcfg)                                # the card by default
+        start = copy.deepcopy(state)
+        before = {k: v.clone() for k, v in float_state(state.model).items()}
+        ema_before = {k: v.clone() for k, v in state.ema.items()}
         torch.cuda.synchronize()
-    finally:
-        segf.seg_loss_sums, segf.seg_loss_dlogits, simota_fused._kernel_batched = swapped
-    check(not any({**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}.values()),
-          "the plain step launched no kernel")
-    for k, v in history[0].items():
-        pv = float(plain_first[k])
-        log(f"[train path vs plain] {k}: {v:.6f} vs {pv:.6f}")
-        check(rel_diff(v, pv) <= (0.01 if k == "num_fg" else 0.02), f"first step {k}")
-    del start
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(block, segf, simota_fused)
+        state, first = step(state, batches[0])
+        torch.cuda.synchronize()
+        launches = {**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}
+        log(f"[train {tag}] launches in one step {launches}")
+        n = 27 if fused else 0
+        want = {"mixer_block": n, "mlp_block": n, "mixer_block_bwd": n, "mlp_block_bwd": n,
+                "seg_loss_sums": 1, "seg_loss_dlogits": 1}
+        check({k: launches[k] for k in want} == want and launches["simota_assign"] >= 1,
+              launches)
+        history = [{k: float(v) for k, v in first.items()}]
+        for bt in batches[1:steps]:
+            state, m = step(state, bt)
+            history.append({k: float(v) for k, v in m.items()})
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        for i, m in enumerate(history):
+            log(f"[train {tag}] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
+            check(all(np.isfinite(v) for v in m.values()) and m["num_fg"] > 0, f"step {i + 1}")
+        after = float_state(state.model)
+        moved = lambda keys, a, b: sum(not torch.equal(a[k], b[k]) for k in keys)  # noqa: E731
+        names = [k for k, _ in state.model.named_parameters()]
+        stats = [k for k in before if k.endswith(("running_mean", "running_var"))]
+        log(f"[train {tag}] moved: {moved(names, before, after)}/{len(names)} parameters, "
+            f"{moved(stats, before, after)}/{len(stats)} BN running stats, "
+            f"{moved(list(ema_before), ema_before, state.ema)}/{len(ema_before)} EMA entries; "
+            f"step {state.step}, ema_updates {state.ema_updates}, lr {lr}")
+        log(f"[train {tag}] parameters that kept their bits: "
+            f"{[k for k in names if torch.equal(before[k], after[k])]}")
+        # a few decay-free entries rightly stay: their update lr * grad is below
+        # one f32 ulp of the value (norm weights and alpha behind a LayerScale of
+        # ~1e-5, a conv bias in front of a batch-stat BatchNorm)
+        check(moved(names, before, after) >= 0.9 * len(names), "the parameters moved")
+        check(moved(stats, before, after) == len(stats), "every BN running stat moved")
+        check(moved(list(ema_before), ema_before, state.ema) >= 0.9 * len(ema_before),
+              "the EMA moved")
+        check(state.step == steps and state.ema_updates == float(steps), "counters")
+        del before, ema_before, after
+        # the same first step through the plain twins, from the same start
+        saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in plain_of]
+        for mod, attr, fn in plain_of:
+            setattr(mod, attr, fn)
+        reset_launches(block, segf, simota_fused)
+        try:
+            _, plain_first = step(start, batches[0])
+            torch.cuda.synchronize()
+        finally:
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
+        check(not any({**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}.values()),
+              "the plain step launched no kernel")
+        for k, v in history[0].items():
+            pv = float(plain_first[k])
+            log(f"[train {tag} vs plain twins] {k}: {v:.6f} vs {pv:.6f}")
+            ok = (abs(v - pv) <= max(0.01 * pv, 1.0) if k == "num_fg"
+                  else rel_diff(v, pv) <= 0.02)
+            check(ok, f"first step {k}")
+        return state, step, history, launches, peak
 
-    # overfit one fixed 128^2 batch, f32, 30 steps
+    state, train_step, history, train_launches, train_peak = run_train("fused", True, 5)
+    mstate, mstep, mhistory, _, mpeak = run_train("module path", False, 2)
+    for k in ("loss", "loss_det", "loss_seg"):
+        v, mv = history[0][k], mhistory[0][k]
+        log(f"[train fused vs module path] first step {k}: {v:.6f} vs {mv:.6f}")
+        check(rel_diff(v, mv) <= 0.02, f"fused vs module path {k}")
+
+    # ---- 10. overfit one fixed 128^2 batch, f32, 30 steps, fused blocks ----
     ocfg = Config(
         model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="float32",
                           input_size=(128, 128), seg_signed_logits=True,
-                          use_pallas_cluster=False),
+                          use_pallas_cluster=True),
         loss=LossConfig(max_boxes=16, use_pallas_seg=True))
     ostate = create_train_state(ocfg, weights=R05)
     set_learning_rate(ostate.optimizer, adaptive_lr(ocfg.optim, 4)[0])
     ostep = build_train_step(ocfg)
     obatch = make_batch(np.random.default_rng(8), 4, (128, 128))
     olosses = []
+    before = dict(block.LAUNCHES)
     for _ in range(30):
         ostate, m = ostep(ostate, obatch)
         olosses.append(float(m["loss"]))
-    log(f"[overfit 128^2 f32, 30 steps] loss {olosses[0]:.4f} -> {olosses[-1]:.4f} "
-        f"(min {min(olosses):.4f})")
+    log(f"[overfit 128^2 f32, fused blocks, 30 steps] loss {olosses[0]:.4f} -> "
+        f"{olosses[-1]:.4f} (min {min(olosses):.4f}); block launches "
+        f"{ {k: block.LAUNCHES[k] - before[k] for k in before} }")
+    check(block.LAUNCHES["mixer_block_bwd"] > before["mixer_block_bwd"], "overfit ran K6")
     check(all(np.isfinite(olosses)) and olosses[-1] < olosses[0], "overfit loss falls")
     del ostate
 
     # step time, images/s, device-busy share, launches per step
-    def one_step():
-        train_step(state, batches[0])
+    def time_step(tag, st, fn, peak, hist):
+        def one_step():
+            fn(st, batches[0])
 
-    one_step()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(5):
         one_step()
-    torch.cuda.synchronize()
-    step_ms = (time.perf_counter() - t0) * 1e3 / 5
-    tp = profile_calls(one_step, reps=2)
-    train = {"batch": TRAIN_BATCH, "step_ms": step_ms,
-             "images_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_gib": train_peak,
-             "profile": tp, "history": history, "overfit": [olosses[0], olosses[-1]]}
-    log(f"[train step bs={TRAIN_BATCH}] {step_ms:.2f} ms, {train['images_per_s']:.1f} images/s, "
-        f"peak memory {train_peak:.3f} GiB; profiled: wall {tp['wall_ms']:.2f} ms, device busy "
-        f"{tp['device_ms']:.2f} ms ({tp['busy_share']:.3f}), {tp['launches']} kernel launches")
-    for cat, v in tp["by_category_ms"].items():
-        log(f"[train step device ms] {cat}: {v:.4f}")
-    for name, v, n in tp["top"]:
-        log(f"[train step top] {v:.4f} ms x{n} {name}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            one_step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / 5
+        tp = profile_calls(one_step, reps=2)
+        log(f"[train step {tag} bs={TRAIN_BATCH}] {step_ms:.2f} ms, "
+            f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s, peak memory {peak:.3f} GiB; "
+            f"profiled: wall {tp['wall_ms']:.2f} ms, device busy {tp['device_ms']:.2f} ms "
+            f"({tp['busy_share']:.3f}), {tp['launches']} kernel launches")
+        for name, v, n in tp["top"]:
+            log(f"[train step {tag} top] {v:.4f} ms x{n} {name}")
+        return {"batch": TRAIN_BATCH, "step_ms": step_ms,
+                "images_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_gib": peak,
+                "profile": tp, "history": hist}
+
+    train = time_step("fused", state, train_step, train_peak, history)
+    train["overfit"] = [olosses[0], olosses[-1]]
+    train_module = time_step("module path", mstate, mstep, mpeak, mhistory)
+    log("[train step] fused vs module path: " + ", ".join(
+        f"{k} {train[k]:.3f} vs {train_module[k]:.3f}"
+        for k in ("step_ms", "images_per_s", "peak_gib")) +
+        f", device busy ms {train['profile']['device_ms']:.3f} vs "
+        f"{train_module['profile']['device_ms']:.3f}, busy share "
+        f"{train['profile']['busy_share']:.3f} vs {train_module['profile']['busy_share']:.3f}, "
+        f"launches {train['profile']['launches']} vs {train_module['profile']['launches']}")
+    for cat in train["profile"]["by_category_ms"]:
+        log(f"[train step device ms] {cat}: fused {train['profile']['by_category_ms'][cat]:.4f}, "
+            f"module path {train_module['profile']['by_category_ms'][cat]:.4f}")
+    for kname in BWD_KERNELS:
+        st = bwd_stats[kname]
+        report.append({"name": kname, "route": "cuda", **BWD_KERNELS[kname],
+                       "launches": train_launches[kname], "max_abs_err": st["max_abs_err"],
+                       "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                       "bound_by": st["bound_by"], "library_ms": None,
+                       "per_shape": st["per_shape"]})
     for kname in TRAIN_KERNELS:
         st = train_stats[kname]
         report.append({"name": kname, "route": "cuda", **TRAIN_KERNELS[kname],
@@ -798,8 +1028,9 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     log(f"[total] {time.time() - t_start:.1f} s")
-    print(json.dumps({"forward": fwd, "train": train, "mixer_assignment_agreement_bf16":
-                      stats_out["mixer_block"].get("agreement"),
+    print(json.dumps({"forward": fwd, "train": train, "train_module_path": train_module,
+                      "mixer_assignment_agreement_bf16": stats_out["mixer_block"].get("agreement"),
+                      "pack_assignment_agreement_bf16": pack_agreement,
                       "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"]}),
           flush=True)
     print(json.dumps({"kernels": report}), flush=True)

@@ -10,9 +10,9 @@ Tolerances:
   f32 instantiation: atol 1e-4 relative to the output scale.  Same formula,
     f32 everywhere, sums in another order; assignments must agree on >=
     99.99% of (token, head) pairs (ties only at f32 rounding).
-  bf16 (the main path): the kernel rounds intermediates to bf16 where the
-    TPU kernel does, the plain twin where the JAX package's module reference
-    does, so near-tied assignments flip.  Agreement >= 99%, mean |diff| <=
+  bf16 (the main path): kernel and twin round intermediates to bf16 where
+    the TPU kernel does, but sum in another order, so a rounding can land on
+    the other side and near-tied assignments flip.  Agreement >= 99%, mean |diff| <=
     2% of max |y| (y = out - x), max |diff| <= max |y| + 2 bf16 ulps; the MLP
     half (no assignments) within 2 bf16 ulps of max |out|.
 """
@@ -280,3 +280,142 @@ def test_simota_kernel_matches_plain_on_random_inputs(dev):
     assert abs(ker.num_fg.sum().item() - ref.num_fg.sum().item()) <= 0.01 * ref.num_fg.sum().item()
     assert (kdyn == rdyn).float().mean().item() >= 0.99
     assert ref.num_fg.sum().item() > 100
+
+
+# ---------------------------------------------------------------------------
+# the block backward: K2's residual pack, K5 and K6 (same pack fed to the
+# kernel and to its twin, so a flipped bf16 assignment cannot enter)
+#   f32: every output within 1e-4 * max(1, max |ref|), assignment 100% equal.
+#   bf16: dxn within 2 bf16 ulps of max |ref|; weight, bias, alpha/beta
+#   gradients within 2% of max |ref|; GroupNorm sums within 1e-3 of
+#   sum |dxn| (they cancel); residual pack: assignment >= 99% equal, c_rep
+#   within 2% of max |ref|, cbest within 2% of max |ref| where the
+#   assignment agrees, mean |d oc| within 2% of max |ref| (a flipped token
+#   moves its two centers).  Two runs of each kernel give equal bits.
+# ---------------------------------------------------------------------------
+
+def _bwd_close(name, got, want, dt, dxn_ref=None):
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if dt == torch.float32:
+        assert err <= 1e-4 * max(1.0, scale), (name, err, scale)
+    elif name == "dxn":
+        assert err <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7), (name, err, scale)
+    elif name == "sums":
+        tol = 1e-3 * dxn_ref.float().abs().sum(dim=(1, 2, 3))
+        assert ((got - want).abs() <= tol[:, None]).all(), (name, got, want)
+    else:
+        assert err <= 0.02 * max(scale, 1e-6), (name, err, scale)
+
+
+def _mixer_setup(dev, shape, dt, seed):
+    _, b, h, w, c, heads, d, fold, hid = shape
+    n, mixer, _ = _weights(c, heads * d, hid, seed)
+    x = n(b, h, w, c).to(dev, dt)
+    g = (n(b, h, w, c) * 0.5).to(dev, dt)
+    args = _cast(mixer, dt, dev)
+    kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+    return x, g, block.gn1_stats(x), args, kw
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_residual_pack_matches_plain(dev, shape, dt):
+    x, _, st, args, kw = _mixer_setup(dev, shape, dt, 2)
+    before = block.LAUNCHES["mixer_block"]
+    out, mom, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    _, _, again = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["mixer_block"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(pack, again))
+    ref, _, rpack = block.mixer_block_plain(x, st, *args, return_residuals=True, **kw)
+    assert [(t.dtype, t.shape) for t in pack] == [(t.dtype, t.shape) for t in rpack]
+    same = pack[1] == rpack[1]
+    if dt == torch.float32:
+        assert bool(same.all())
+        for name, a, r in zip(("cbest", "c_rep", "oc"), pack[::2] + pack[3:], rpack[::2] + rpack[3:]):
+            _bwd_close(name, a, r, dt)
+    else:
+        assert same.float().mean().item() >= 0.99
+        _bwd_close("c_rep", pack[2], rpack[2], dt)
+        cb_err = ((pack[0].float() - rpack[0].float()).abs() * same).max().item()
+        assert cb_err <= 0.02 * rpack[0].float().abs().max().item()
+        # a flipped token moves its two centers: the mean stays small
+        oc_err = (pack[3].float() - rpack[3].float()).abs().mean().item()
+        assert oc_err <= 0.02 * rpack[3].float().abs().max().item()
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_bwd_kernel_matches_plain(dev, shape, dt):
+    x, g, st, args, kw = _mixer_setup(dev, shape, dt, 3)
+    wf, bf, wv, bv, w2, _, ab = args
+    _, _, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    before = block.LAUNCHES["mixer_block_bwd"]
+    got = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
+    again = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["mixer_block_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = block.mixer_block_bwd_plain(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
+    assert got[0].dtype == dt and got[0].shape == x.shape
+    names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
+    for name, a, w_ in zip(names, got, want):
+        _bwd_close(name, a, w_, dt, want[0])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mlp_bwd_kernel_matches_plain(dev, shape, dt):
+    _, b, h, w, c, heads, d, fold, hid = shape
+    n, _, mlp = _weights(c, heads * d, hid, 4)
+    x = n(b, h, w, c).to(dev, dt)
+    g = (n(b, h, w, c) * 0.5).to(dev, dt)
+    st = block.gn1_stats(x)
+    w1, b1, w2, _ = _cast(mlp, dt, dev)
+    before = block.LAUNCHES["mlp_block_bwd"]
+    got = block.mlp_block_bwd(x, g, st, w1, b1, w2)
+    again = block.mlp_block_bwd(x, g, st, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["mlp_block_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = block.mlp_block_bwd_plain(x, g, st, w1, b1, w2)
+    for name, a, w_ in zip(("dxn", "dw1", "db1", "dw2", "db2", "sums"), got, want):
+        _bwd_close(name, a, w_, dt, want[0])
+
+
+def test_fused_train_step_on_card_matches_cpu(dev):
+    """coc_dryrun 128^2 f32, one train step through the fused blocks: the
+    card (K2 with its pack, K1, K6, K5) against the CPU (their twins) from
+    the same state: metrics rtol 1e-3 (f32 kernels, cuDNN with TF32 off,
+    sums in another order through a forward and a backward)."""
+    from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.data.synthetic import make_batch
+    from asy_vrnet_tpu_torch.train.optim import set_learning_rate
+    from asy_vrnet_tpu_torch.train.state import create_train_state
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    cfg = Config(model=ModelConfig(phi="nano", variant="coc_dryrun", compute_dtype="float32",
+                                   input_size=(128, 128)),
+                 loss=LossConfig(max_boxes=16, use_pallas_seg=True))
+    torch.manual_seed(0)
+    cpu = create_train_state(cfg, device="cpu")
+    card = create_train_state(cfg, device=dev)
+    card.model.load_state_dict(cpu.model.state_dict())
+    batch = make_batch(np.random.default_rng(5), 2, (128, 128), max_boxes=16)
+    out = {}
+    for name, state, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+        set_learning_rate(state.optimizer, 1e-2)
+        before = dict(block.LAUNCHES)
+        _, m = build_train_step(cfg, device=device)(state, batch)
+        out[name] = {k: float(v) for k, v in m.items()}
+        launched = {k: block.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({k: 0 for k in before} if name == "cpu" else
+                            {"mixer_block": 10, "mlp_block": 10, "mixer_block_bwd": 10,
+                             "mlp_block_bwd": 10})
+    for k in out["cpu"]:
+        np.testing.assert_allclose(out["card"][k], out["cpu"][k], rtol=1e-3, err_msg=k)
+    for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
+        if a.is_floating_point():
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3, msg=k)

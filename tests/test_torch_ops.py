@@ -101,7 +101,7 @@ def test_mixer_half_matches_jax_kernel(name):
         *[_t(a) for a in args], heads, fold, fold, 2, 2)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=2e-5, rtol=1e-5)
     np.testing.assert_allclose(stats.numpy(), np.asarray(ref_stats), atol=1e-5, rtol=1e-5)
-    assert tb.LAUNCHES == {"mixer_block": 0, "mlp_block": 0}   # CPU: plain path
+    assert not any(tb.LAUNCHES.values())   # CPU: plain path
 
 
 @pytest.mark.parametrize("name", sorted(BLOCK_SHAPES))
@@ -137,7 +137,7 @@ def test_wrappers_take_plain_path_on_cpu():
     out, mom = tb.mixer_block(xt, st, *wargs, **kw)
     ref, rmom = tb.mixer_block_plain(xt, st, *wargs, **kw)
     assert out.dtype == torch.bfloat16 and torch.equal(out, ref) and torch.equal(mom, rmom)
-    assert tb.LAUNCHES == {"mixer_block": 0, "mlp_block": 0}
+    assert not any(tb.LAUNCHES.values())
 
 
 @pytest.mark.parametrize("shape,heads,head_dim,fold", [

@@ -198,9 +198,18 @@ def test_cluster_block_with_dropout_trains_and_fused_blocks_refuse_to():
     y.sum().backward()
     assert y.shape == ref.shape and not torch.allclose(y, ref)
     assert blk.mlp.fc1.weight.grad is not None and x.grad is not None
+    # JAX's gate: a fused block refuses the fused halves while dropout is
+    # active (drop > 0, or drop-path > 0 in training) and trains on the
+    # module path; without dropout it trains through the fused halves
+    assert not blk.fused_ok(x) and not blk.eval().fused_ok(x)
+    dp = ClusterBlock(16, drop_path=0.3, heads=2, head_dim=8, fused=True)
+    assert not dp.train().fused_ok(x) and dp.eval().fused_ok(x)
     fused = ClusterBlock(16, heads=2, head_dim=8, fused=True).train()
-    with pytest.raises(NotImplementedError, match="use_pallas_cluster=False"):
-        fused(x)
+    assert fused.fused_ok(x)
+    x.grad = None
+    fused(x).square().sum().backward()
+    assert x.grad is not None
+    assert all(p.grad is not None for p in fused.parameters())
 
 
 def test_variant_drop_rates_reach_the_blocks():

@@ -115,9 +115,12 @@ def check_forward_and_boxes(jm, variables, port, size: int):
 # the bridge
 # ---------------------------------------------------------------------------
 
-def train_configs(multitask_mode: str = "fixed", size: int = 64, **optim):
-    """-> (JAX Config, port Config): coc_dryrun, f32, module-path blocks.  The
-    JAX side takes its oracle seg loss (CPU default), the port its fused path
+def train_configs(multitask_mode: str = "fixed", size: int = 64,
+                  use_pallas_cluster: bool = False, **optim):
+    """-> (JAX Config, port Config): coc_dryrun, f32, module-path blocks
+    unless `use_pallas_cluster` (then the fused ClusterBlocks: Pallas kernels
+    in interpret mode in JAX, the kernels' plain twins in the port).  The JAX
+    side takes its oracle seg loss (CPU default), the port its fused path
     (through the kernels' plain twins on the CPU)."""
     from asy_vrnet_tpu import config as jc
     from asy_vrnet_tpu_torch import config as tc
@@ -125,7 +128,7 @@ def train_configs(multitask_mode: str = "fixed", size: int = 64, **optim):
     def make(mod, use_pallas_seg):
         return mod.Config(
             model=mod.ModelConfig(phi="nano", variant="coc_dryrun", compute_dtype="float32",
-                                  use_pallas_cluster=False, prestem_s2d=False,
+                                  use_pallas_cluster=use_pallas_cluster, prestem_s2d=False,
                                   input_size=(size, size)),
             loss=mod.LossConfig(multitask_mode=multitask_mode, max_boxes=16,
                                 use_pallas_seg=use_pallas_seg),
@@ -204,11 +207,13 @@ def assert_trees_close(got: dict, want, atol: float, what: str):
 
 
 def run_one_step_each(mode: str, freeze_backbone: bool = False, seeds=(0, 1),
-                      weight_seed: int = 1):
+                      weight_seed: int = 1, size: int = 64,
+                      use_pallas_cluster: bool = False):
     """One JAX train state stepped twice (batches from `seeds`) and the port's
     state carried over by the bridge and stepped once.  -> dict with the JAX
-    states and metrics, the port state and metrics, and what a second port
-    step needs.
+    states and metrics, the port state and metrics, what a second port step
+    needs, and which ClusterBlocks took the fused path in the port's step
+    (`fused`, in call order).
 
     weight_seed: both packages compute in f32 in another order, so a ReLU
     input within rounding of 0 can land on either side of the kink.  The
@@ -222,16 +227,22 @@ def run_one_step_each(mode: str, freeze_backbone: bool = False, seeds=(0, 1),
     from asy_vrnet_tpu_torch.data.synthetic import make_batch
     from asy_vrnet_tpu_torch.train.train_step import build_train_step
 
-    jcfg, tcfg = train_configs(mode)
-    jm, j0, tx = jax_train_setup(jcfg, tcfg, seed=weight_seed)
+    jcfg, tcfg = train_configs(mode, size, use_pallas_cluster)
+    jm, j0, tx = jax_train_setup(jcfg, tcfg, size=size, seed=weight_seed)
     jstep = jax.jit(j_build(jm, jcfg, tx, freeze_backbone=freeze_backbone))
-    batches = [make_batch(np.random.default_rng(s), 2, (64, 64)) for s in seeds]
+    batches = [make_batch(np.random.default_rng(s), 2, (size, size)) for s in seeds]
     j1, jm1 = jstep(j0, jax.tree.map(jnp.asarray, batches[0]))
     j2, jm2 = jstep(j1, jax.tree.map(jnp.asarray, batches[1]))
     tstep = build_train_step(tcfg, freeze_backbone=freeze_backbone, device="cpu")
-    t1, tm1 = tstep(port_state_from_jax(tcfg, j0), batches[0])
+    t0 = port_state_from_jax(tcfg, j0)
+    fused = []
+    hooks = [m.register_forward_pre_hook(lambda m, a: fused.append(m.fused_ok(a[0])))
+             for m in t0.model.modules() if isinstance(m, ClusterBlock)]
+    t1, tm1 = tstep(t0, batches[0])
+    for h in hooks:
+        h.remove()
     return dict(tcfg=tcfg, j0=j0, j1=j1, j2=j2, jm1=jm1, jm2=jm2, t1=t1, tm1=tm1,
-                tstep=tstep, batches=batches)
+                tstep=tstep, batches=batches, fused=fused)
 
 
 def check_first_step(r):
