@@ -7,8 +7,11 @@ rate 0, and drop-path 0 or eval mode, as in the JAX package), each residual
 half of the block is one fused op (`ops/block.py`: a CUDA kernel on the card,
 its plain twin on the CPU), in training as well: the forward runs K2 and K1,
 the backward K6 and K5.  Otherwise the module path runs: GN1 -> Cluster
-(fc1/fc_v -> plain `cluster_mix` -> fc2) -> LayerScale -> +x; GN2 -> Mlp ->
-LayerScale -> +x, with plain autograd.  Both paths read the same parameters.
+(fc1/fc_v -> cluster mix -> fc2) -> LayerScale -> +x; GN2 -> Mlp ->
+LayerScale -> +x.  Its cluster mix is, as JAX's `use_pallas` route,
+`cluster_mix_fused` when `fused` (K7 forward, K7b backward where the shape
+allows, `ops/cluster_fused.py`), else the plain `cluster_mix`; the rest has
+plain autograd.  Both paths read the same parameters.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from asy_vrnet_tpu_torch.ops.block import (
     mlp_block_supported,
 )
 from asy_vrnet_tpu_torch.ops.cluster import cluster_mix
+from asy_vrnet_tpu_torch.ops.cluster_fused import cluster_mix_fused
 
 
 def _nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -39,15 +43,17 @@ def _matmul_w(conv: nn.Conv2d) -> torch.Tensor:
 
 
 class Cluster(nn.Module):
-    """Context-cluster token mixer (vr_coc.py:128-192)."""
+    """Context-cluster token mixer (vr_coc.py:128-192).  `fused` is JAX's
+    `use_pallas`: the mix goes through `cluster_mix_fused`."""
 
     def __init__(self, dim: int, out_dim: int, proposal_w: int = 2,
                  proposal_h: int = 2, fold_w: int = 2, fold_h: int = 2,
-                 heads: int = 4, head_dim: int = 24):
+                 heads: int = 4, head_dim: int = 24, fused: bool = False):
         super().__init__()
         inner = heads * head_dim
         self.heads, self.fold_h, self.fold_w = heads, fold_h, fold_w
         self.proposal_h, self.proposal_w = proposal_h, proposal_w
+        self.fused = fused
         self.fc1 = Conv2d(dim, inner, 1)
         self.fc2 = Conv2d(inner, out_dim, 1)
         self.fc_v = Conv2d(dim, inner, 1)
@@ -57,12 +63,12 @@ class Cluster(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         value = _nhwc(self.fc_v(x))
         feat = _nhwc(self.fc1(x))
-        out = cluster_mix(
-            feat, value, self.sim_alpha.to(x.dtype), self.sim_beta.to(x.dtype),
-            heads=self.heads, fold_h=self.fold_h, fold_w=self.fold_w,
-            proposal_h=self.proposal_h, proposal_w=self.proposal_w,
-        )
-        return self.fc2(_nchw(out).contiguous(memory_format=torch.channels_last))
+        mix = cluster_mix_fused if self.fused else cluster_mix
+        # alpha and beta stay f32 (JAX's params); fc2 takes the compute dtype
+        out = mix(feat, value, self.sim_alpha, self.sim_beta,
+                  heads=self.heads, fold_h=self.fold_h, fold_w=self.fold_w,
+                  proposal_h=self.proposal_h, proposal_w=self.proposal_w)
+        return self.fc2(_nchw(out.to(x.dtype)).contiguous(memory_format=torch.channels_last))
 
 
 class ClusterBlock(nn.Module):
@@ -82,7 +88,7 @@ class ClusterBlock(nn.Module):
         self.drop_rate, self.drop_path_rate = drop, drop_path
         self.norm1 = GroupNorm1(dim)
         self.token_mixer = Cluster(dim, dim, proposal_w, proposal_h, fold_w,
-                                   fold_h, heads, head_dim)
+                                   fold_h, heads, head_dim, fused)
         self.norm2 = GroupNorm1(dim)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
         self.drop_path = DropPath(drop_path)

@@ -85,17 +85,31 @@ def _group_w(fold_w: int, region_tokens: int) -> int:
     return best
 
 
+def pallas_supported(shape, *, heads, fold_h, fold_w, proposal_h, proposal_w) -> bool:
+    """`cluster_pallas.py::pallas_supported` on the NHWC shape of feat: the
+    shapes the stand-alone cluster mix kernel takes."""
+    b, h, w, c = shape
+    if h % fold_h or w % fold_w or c % heads:
+        return False
+    rh, rw = h // fold_h, w // fold_w
+    n = rh * rw
+    if not (8 <= n <= _MAX_TOKENS_PER_REGION):
+        return False
+    d = c // heads
+    if d < 8:
+        return False
+    gw = _group_w(fold_w, n)
+    hb = gw * heads * proposal_h * proposal_w
+    return hb <= _MAX_SIM_ROWS
+
+
 def mixer_block_supported(shape, *, heads, head_dim, fold_h, fold_w,
                           proposal_h, proposal_w) -> bool:
-    """`block_pallas.py::mixer_block_supported` (via `pallas_supported`)."""
-    b, h, w, _ = shape
-    if h % fold_h or w % fold_w:
-        return False
-    n = (h // fold_h) * (w // fold_w)
-    if not (8 <= n <= _MAX_TOKENS_PER_REGION) or head_dim < 8:
-        return False
-    hb = _group_w(fold_w, n) * heads * proposal_h * proposal_w
-    return hb <= _MAX_SIM_ROWS
+    """`block_pallas.py::mixer_block_supported`: `pallas_supported` at the
+    block's inner width."""
+    b, h, w, c = shape
+    return pallas_supported((b, h, w, heads * head_dim), heads=heads, fold_h=fold_h,
+                            fold_w=fold_w, proposal_h=proposal_h, proposal_w=proposal_w)
 
 
 def mlp_block_supported(shape) -> bool:

@@ -46,7 +46,11 @@ def _pool_matrix(region_hw, proposal_hw, device, dtype) -> torch.Tensor:
 
 
 def _normalize(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.rsqrt((x * x).sum(dim=-1, keepdim=True) + 1e-12)
+    """L2-normalise the last dim in x's dtype, op by op as JAX does; the
+    rsqrt is taken in f32 and rounded once (torch's bf16 rsqrt on the CPU is
+    not correctly rounded)."""
+    e = (x * x).sum(dim=-1, keepdim=True) + 1e-12
+    return x * torch.rsqrt(e.float()).to(x.dtype)
 
 
 def cluster_mix(
@@ -68,7 +72,13 @@ def cluster_mix(
     feat, value: NHWC (B,H,W,heads*head_dim).  Returns the dispatched NHWC map
     (same shape), or the per-region centers if return_center.  With
     return_assign, also the (B, heads, H, W) int64 index of each token's
-    center (first-max ties, torch `.max` semantics)."""
+    center (first-max ties, torch `.max` semantics).
+
+    Dtypes follow the JAX package, whose alpha and beta are f32 params: the
+    pooling and the cosine product stay in feat's dtype; sigmoid(beta +
+    alpha * cos) and everything after it (mask, counts, aggregation, centers,
+    dispatch) are f32, so the result is f32.  The caller casts it back to
+    the compute dtype (JAX's fc2, a bf16 `nn.Conv`, does)."""
     b, h, w, c = feat.shape
     if h % fold_h or w % fold_w:
         raise ValueError(f"feature map {h}x{w} not divisible by fold {fold_h}x{fold_w}")
@@ -78,16 +88,19 @@ def cluster_mix(
     centers = torch.einsum("mn,bhrnd->bhrmd", pool, x)
     v_centers = torch.einsum("mn,bhrnd->bhrmd", pool, v)
 
-    sim = torch.einsum("bhrmd,bhrnd->bhrmn", _normalize(centers), _normalize(x))
-    sim = torch.sigmoid(sim_beta + sim_alpha * sim)
+    cos = torch.einsum("bhrmd,bhrnd->bhrmn", _normalize(centers), _normalize(x))
+    f32 = torch.float32
+    alpha = torch.as_tensor(sim_alpha, dtype=f32, device=feat.device)
+    beta = torch.as_tensor(sim_beta, dtype=f32, device=feat.device)
+    sim = torch.sigmoid(beta + alpha * cos.to(f32))
 
     m = sim.shape[-2]
     assign = torch.argmax(sim, dim=-2)                               # (B,h,R,N)
     mask = torch.nn.functional.one_hot(assign, m).movedim(-1, -2).to(sim.dtype)
     sim = sim * mask
     counts = mask.sum(dim=-1, keepdim=True)
-    agg = torch.einsum("bhrmn,bhrnd->bhrmd", sim, v)
-    out_centers = (agg + v_centers) / (counts + 1.0)
+    agg = torch.einsum("bhrmn,bhrnd->bhrmd", sim, v.to(f32))
+    out_centers = (agg + v_centers.to(f32)) / (counts + 1.0)
     if return_center:
         return out_centers
     out = torch.einsum("bhrmn,bhrmd->bhrnd", sim, out_centers)

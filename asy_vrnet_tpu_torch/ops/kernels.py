@@ -1,8 +1,9 @@
 """Build, load and launch the CUDA kernels in `asy_vrnet_tpu_torch/csrc/`.
 
-Seven sources: the two fused ClusterBlock halves (mixer_block, mlp_block) and
-their backward passes (mixer_block_bwd, mlp_block_bwd), the fused seg-loss
-forward and backward (seg_loss_sums, seg_loss_dlogits) and SimOTA
+Nine sources: the two fused ClusterBlock halves (mixer_block, mlp_block) and
+their backward passes (mixer_block_bwd, mlp_block_bwd), the stand-alone
+cluster mix and its backward (cluster_mix, cluster_mix_bwd), the fused
+seg-loss forward and backward (seg_loss_sums, seg_loss_dlogits) and SimOTA
 (simota_assign).  Each source is compiled by nvcc into a shared
 library with a plain C interface (`-gencode arch=compute_90a,code=sm_90a`),
 loaded with ctypes, at first use; all sources build in parallel.  Libraries
@@ -30,8 +31,9 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("mixer_block", "mlp_block", "mixer_block_bwd", "mlp_block_bwd",
-           "seg_loss_sums", "seg_loss_dlogits", "simota_assign")
-HEADERS = ("common.cuh", "seg_loss.cuh")
+           "cluster_mix", "cluster_mix_bwd", "seg_loss_sums", "seg_loss_dlogits",
+           "simota_assign")
+HEADERS = ("common.cuh", "cluster_mix.cuh", "seg_loss.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 # SimOTA's results hang on exact ties between costs, so its source is built
@@ -50,6 +52,8 @@ _SIGS = {
     "mlp_block": [_P] * 7 + [_I] * 4 + [_P],
     "mixer_block_bwd": [_P] * 19 + [_I] * 12 + [_P],
     "mlp_block_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    "cluster_mix": [_P] * 5 + [_I] * 9 + [_P],
+    "cluster_mix_bwd": [_P] * 8 + [_I] * 9 + [_P],
     "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
     "seg_loss_dlogits": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
     "simota_assign": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
@@ -225,6 +229,26 @@ def mlp_block(x, stats, w1, b1, w2, b2, out) -> None:
     b, h, w, c = x.shape
     _call("mlp_block", x, _ptr(x), _ptr(stats), _ptr(w1), _ptr(b1), _ptr(w2),
           _ptr(b2), _ptr(out), b, h * w, c, w1.shape[1])
+
+
+def cluster_mix(feat, value, alpha_beta, out, assign, *, heads, fold_h, fold_w,
+                proposal_h, proposal_w) -> None:
+    """Launch the cluster mix forward (K7); tensors are checked by the
+    caller.  `assign` (B, H, W, heads) int8 may be None."""
+    b, h, w, c = feat.shape
+    _call("cluster_mix", feat, _ptr(feat), _ptr(value), _ptr(alpha_beta), _ptr(out),
+          _ptr(assign), b, h, w, c, heads, fold_h, fold_w, proposal_h, proposal_w)
+
+
+def cluster_mix_bwd(feat, value, g, alpha_beta, dx, dv, dab, assign, *, heads, fold_h,
+                    fold_w, proposal_h, proposal_w) -> None:
+    """Launch the cluster mix backward (K7b); tensors are checked by the
+    caller.  `dab` is (B * heads * fold_h * fold_w, 2) f32, one row of [d
+    alpha, d beta] partials per block; `assign` may be None."""
+    b, h, w, c = feat.shape
+    _call("cluster_mix_bwd", feat, _ptr(feat), _ptr(value), _ptr(g), _ptr(alpha_beta),
+          _ptr(dx), _ptr(dv), _ptr(dab), _ptr(assign), b, h, w, c, heads, fold_h, fold_w,
+          proposal_h, proposal_w)
 
 
 def seg_loss_sums(logits, target, weights, part, alpha, gamma, threshold) -> None:

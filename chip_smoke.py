@@ -33,21 +33,41 @@ Phases (each raises on failure; nothing is caught):
      twin's, the MLP-half backward kernel (K5) against its twin, and the
      mixer-half backward kernel (K6) against its twin with both fed the
      kernel's pack; two runs of each give equal bits; times and bounds;
-  8. train path (the main path): r05 weights, `create_train_state`, 5 steps
+  8. kernels, stand-alone cluster mix: K7 (cluster_mix) and K7b
+     (cluster_mix_bwd) against their twins at the four shapes the
+     stochastic-depth step gives them, batch 16, f32 and bf16:
+     (16,128,128,128) fold 8 heads 4, (16,64,64,128) fold 4 heads 4,
+     (16,32,32,256) fold 2 heads 8, (16,16,16,256) fold 1 heads 8; K7's and
+     K7b's assignment outputs equal; two runs of each give equal bits;
+     times, twin times and bounds;
+  9. train path, fused blocks: r05 weights, `create_train_state`, 5 steps
      on seeded `make_batch` batches at 512^2, batch 16, bf16, fused
      ClusterBlocks (`use_pallas_cluster=True`, the JAX package's default),
      lr from `adaptive_lr`; launch counters reset before the first step and
      read after it (mixer_block, mlp_block, mixer_block_bwd, mlp_block_bwd 27
-     each, seg_loss_sums 1, seg_loss_dlogits 1, simota_assign >= 1); losses
-     finite, num_fg > 0, parameters, EMA and BN running stats moved; the same
-     first step through the plain twins from the same start;
-  9. the module-path train step (`use_pallas_cluster=False`, every block
-     eager torch with plain autograd): 2 steps from the same start and
-     batches, the same checks with the block kernels at 0 launches; its first
-     step against the fused path's;
- 10. a 30-step overfit of one 128^2 batch in f32 through the fused path;
+     each, cluster_mix and cluster_mix_bwd 0, seg_loss_sums 1,
+     seg_loss_dlogits 1, simota_assign >= 1); losses finite, num_fg > 0,
+     parameters, EMA and BN running stats moved; the same first step through
+     the plain twins from the same start;
+ 10. the module-path train step (`use_pallas_cluster=False`, every block
+     eager torch with plain autograd and the plain cluster mix): 2 steps
+     from the same start and batches, the same checks with every block and
+     cluster-mix kernel at 0 launches; its first step against the fused
+     path's;
+ 11. train path, stochastic depth (the path K7/K7b run on): coc_small with
+     drop_path_rate 0.1 (`dataclasses.replace`, registered in this process
+     only), the same start, batches and checks, drop-path drawing from a
+     seeded CUDA generator (`set_generator`); the 22 backbone blocks past
+     stage 0's first take the module path with K7/K7b, the other 5 the
+     fused blocks: per step cluster_mix and cluster_mix_bwd 22 each, the
+     four block kernels 5 each, seg_loss_sums 1, seg_loss_dlogits 1,
+     simota_assign >= 1; the first step through the twins from the same
+     start and generator seed; then an eval forward of that model launches
+     K2 and K1 27 times and K7 0 times (JAX's gate);
+ 12. a 30-step overfit of one 128^2 batch in f32 through the fused path;
      step time, images/s, peak memory, device-busy share, launches per step
-     and device ms by category for the fused and the module-path step.
+     and device ms by category for the fused, the module-path and the
+     stochastic-depth step.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -81,6 +101,14 @@ Tolerances:
     (near-ties flip, as in the forward), c_rep within 2% of max |ref|, the
     winning cosine within 2% where the assignment agrees, mean |d oc| within
     2% of max |ref|.
+  cluster mix vs plain twins: K7 as the mixer half (f32: max |diff| <=
+    1e-4 * max(1, max |out|), assignment agreement >= 99.99%; bf16:
+    agreement >= 99%, mean |diff| <= 2% of max |out|, max |diff| <= max
+    |out| + 2 bf16 ulps); K7b as the block backward, the twin fed K7b's own
+    assignment (equal to K7's, checked) as K6's twin is fed K2's pack (f32:
+    every output within 1e-4 * max(1, max |ref|); bf16: d feat and d value
+    within 2 bf16 ulps of max |ref|, the summed d alpha and d beta within
+    2% of max |ref|).
   train step, kernels vs plain twins: loss, loss_det, loss_seg within 2%
     relative, num_fg within 1% or one anchor, whichever is more: the
     kernels' and the twins' bf16 forwards differ in the last place here and
@@ -90,14 +118,16 @@ Bounds: max(flops / peak, bytes / 3.35 TB/s), flops and bytes counted from
 this run's shapes and data (each input read once, each output written once).
 The peak is 989 TFLOP/s (dense bf16 tensor cores) for the four block kernels
 and 67 TFLOP/s (f32 on CUDA cores; NVIDIA's H100 SXM data sheet) for the
-seg-loss and SimOTA kernels, which have no matrix product.  The backward
-bounds count the products the math needs: K5 8*C*hid flops per token
-(g @ w2^T, dz1 @ w1^T, both weight gradients; z1's recompute is not
+seg-loss, SimOTA and cluster-mix kernels, which have no matrix product.  The
+backward bounds count the products the math needs: K5 8*C*hid flops per
+token (g @ w2^T, dz1 @ w1^T, both weight gradients; z1's recompute is not
 counted), K6 6*C*I per token (feat, d feat @ wf^T, dWf) plus the per
-(token, head) winner terms.  No single PyTorch call computes any of the
-seven kernels: library_ms is null.
+(token, head) winner terms; K7 and K7b count their code's arithmetic
+(`cluster_mix_bounds`) and 3 (K7) or 5 (K7b) tensors of B*H*W*I bf16 values.
+No single PyTorch call computes any of the nine kernels: library_ms is null.
 """
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -139,6 +169,22 @@ TRAIN_KERNELS = {
     "simota_assign": dict(source="asy_vrnet_tpu_torch/csrc/simota_assign.cu",
                           replaces="asy_vrnet_tpu/ops/simota_pallas.py:154"),
 }
+CLUSTER_KERNELS = {
+    "cluster_mix": dict(source="asy_vrnet_tpu_torch/csrc/cluster_mix.cu",
+                        replaces="asy_vrnet_tpu/ops/cluster_pallas.py:243"),
+    "cluster_mix_bwd": dict(source="asy_vrnet_tpu_torch/csrc/cluster_mix_bwd.cu",
+                            replaces="asy_vrnet_tpu/ops/cluster_pallas.py:448"),
+}
+# the stand-alone cluster mix at the stochastic-depth train step (nano
+# coc_small 512^2, batch 16): (name, B, H, W, inner width I, heads, fold,
+# calls per step: the backbone blocks past stage 0's first, 2 streams)
+CLUSTER_SHAPES = [
+    ("stage0", 16, 128, 128, 128, 4, 8, 2),
+    ("stage1", 16, 64, 64, 128, 4, 4, 4),
+    ("stage2", 16, 32, 32, 256, 8, 2, 12),
+    ("stage3", 16, 16, 16, 256, 8, 1, 4),
+]
+DROP_PATH_VARIANT = "coc_small_droppath"
 TRAIN_BATCH, SEG_CLASSES, MAX_BOXES = 16, 9, 100
 
 
@@ -199,6 +245,20 @@ def mlp_bwd_bounds(b, h, w, c, hid):
     f32 weight gradients."""
     t = b * h * w
     return 8 * t * c * hid, 3 * t * c * 2 + 2 * c * hid * 2 + (2 * c * hid + hid + c) * 4
+
+
+def cluster_mix_bounds(b, h, w, inner, itemsize, backward, m=4):
+    """Per (token, head) of width D, counted from csrc/cluster_mix*.cu: K7
+    pools feat and value (4*D), takes the norm and xn (3*D), the M cosines
+    (2*M*D), the aggregation (2*D) and the dispatch (D): 10*D + 2*M*D; K7b
+    does that forward again and then the cotangents (d oc, d sim, d value
+    with its pooling term, d centers, d feat with its norm and pooling
+    terms): 28*D + 6*M*D.  f32 arithmetic on the CUDA cores.  Bytes: feat
+    and value in, out out (K7); feat, value and g in, d feat and d value out
+    (K7b)."""
+    t = b * h * w
+    flops = t * inner * ((28 + 6 * m) if backward else (10 + 2 * m))
+    return flops, (5 if backward else 3) * t * inner * itemsize
 
 
 def bound_ms(flops, byts, peak=PEAK_FLOPS):
@@ -270,6 +330,8 @@ def iou(a, b):
 
 
 CATEGORIES = (
+    ("cluster_mix_bwd (ours)", ("cluster_mix_bwd",)),
+    ("cluster_mix (ours)", ("cluster_mix",)),
     ("mixer_block_bwd (ours)", ("mixer_bwd",)),
     ("mlp_block_bwd (ours)", ("mlp_block_bwd",)),
     ("mixer_block (ours)", ("mixer_block",)),
@@ -377,6 +439,93 @@ def compare_simota(tag, simota_fused, args, exact):
     return agree, int(kdyn.sum().item()), int(args[5].sum().item()), iou_err
 
 
+def check_cluster_mix(dev):
+    """K7 and K7b against their twins at CLUSTER_SHAPES, f32 and bf16, then
+    their times at bf16.  -> {kernel: stats}, bf16 assignment agreements."""
+    import torch
+
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+
+    stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0} for k in CLUSTER_KERNELS}
+    agreement = []
+    g = torch.Generator().manual_seed(4)
+    ab = torch.tensor([1.5, 0.2], device=dev)
+    for (name, b, h, w, inner, heads, fold, calls) in CLUSTER_SHAPES:
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        f32s = [torch.randn(b, h, w, inner, generator=g) * sc for sc in (1.0, 1.0, 0.5)]
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{name} {str(dt)[6:]}"
+            feat, value, gy = (t.to(dev, dt) for t in f32s)
+            out, asg = cf.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
+            again = cf.cluster_mix_fwd(feat, value, ab, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(out, again), f"K7 bits {tag}")
+            ref, rasg = cf.cluster_mix_fused_plain(feat, value, ab, return_assign=True, **kw)
+            diff = (out.float() - ref.float()).abs()
+            ymax = ref.float().abs().max().item()
+            agree = (asg == rasg).float().mean().item()
+            if dt == torch.float32:
+                check(agree >= 0.9999 and diff.max().item() <= 1e-4 * max(1.0, ymax), f"K7 {tag}")
+            else:
+                agreement.append(agree)
+                check(agree >= 0.99, f"K7 assignment {tag}")
+                check(diff.mean().item() <= 0.02 * ymax, f"K7 mean {tag}")
+                check(diff.max().item() <= ymax + 2 * bf16_ulp(ymax), f"K7 max {tag}")
+            # K7b: its assignment is K7's, bit for bit; the twin is fed it (as
+            # K6's twin is fed K2's pack)
+            got = cf.cluster_mix_bwd(feat, value, gy, ab, return_assign=True, **kw)
+            again = cf.cluster_mix_bwd(feat, value, gy, ab, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(got[:3], again)), f"K7b bits {tag}")
+            check(torch.equal(got[3], asg), f"K7b's assignment is K7's {tag}")
+            want = cf.cluster_mix_bwd_plain(feat, value, gy, ab, assign=got[3], **kw)
+            errs = []
+            for what, a, r in zip(("dfeat", "dvalue", "dalpha_dbeta"), got[:3], want):
+                a, r = a.float(), r.float()
+                sc, err = r.abs().max().item(), (a - r).abs().max().item()
+                if dt == torch.float32:
+                    ok = err <= 1e-4 * max(1.0, sc)
+                elif what == "dalpha_dbeta":
+                    ok = err <= 0.02 * max(sc, 1e-6)
+                else:
+                    ok = err <= 2 * bf16_ulp(sc)
+                errs.append(err)
+                check(ok, f"K7b {what} {tag}: max|diff| {err:.4e} max|ref| {sc:.4e}")
+            log(f"[check cluster_mix {tag}] max|diff| {diff.max().item():.4e} mean|diff| "
+                f"{diff.mean().item():.4e} max|out| {ymax:.4e} assignment agreement {agree:.6f}; "
+                f"[check cluster_mix_bwd {tag}] max|diff| dfeat {errs[0]:.3e} dvalue "
+                f"{errs[1]:.3e} dalpha/beta {errs[2]:.3e}; K7 and K7b assignments equal")
+            if dt == torch.bfloat16:
+                stats["cluster_mix"]["max_abs_err"] = max(stats["cluster_mix"]["max_abs_err"],
+                                                          diff.max().item())
+                stats["cluster_mix_bwd"]["max_abs_err"] = max(
+                    stats["cluster_mix_bwd"]["max_abs_err"], *errs[:2])
+        for kname, backward in (("cluster_mix", False), ("cluster_mix_bwd", True)):
+            if backward:
+                fk = lambda: cf.cluster_mix_bwd(feat, value, gy, ab, **kw)          # noqa: E731
+                fp = lambda: cf.cluster_mix_bwd_plain(feat, value, gy, ab, **kw)    # noqa: E731
+            else:
+                fk = lambda: cf.cluster_mix_fwd(feat, value, ab, **kw)              # noqa: E731
+                fp = lambda: cf.cluster_mix_fused_plain(feat, value, ab, **kw)      # noqa: E731
+            ms, pms = cuda_ms(fk, 20), cuda_ms(fp, 3, warmup=1)
+            flops, byts = cluster_mix_bounds(b, h, w, inner, 2, backward)
+            bms, by = bound_ms(flops, byts, peak=PEAK_FLOPS_F32)
+            log(f"[time {kname} {name} bf16 ({b},{h},{w},{inner})] kernel {ms:.4f} ms, plain "
+                f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), x{calls} per step")
+            st = stats[kname]
+            st["per_shape"].append({"shape": name, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                    "bound_by": by, "calls_per_step": calls})
+            st["ms"] += calls * ms
+            st["plain_ms"] += calls * pms
+            st["bound_ms"] += calls * bms
+            st["flops_ms"] += calls * flops / PEAK_FLOPS_F32 * 1e3
+            st["bytes_ms"] += calls * byts / PEAK_BYTES * 1e3
+    for st in stats.values():
+        st["bound_by"] = "operations" if st.pop("flops_ms") >= st.pop("bytes_ms") else "bytes"
+    return stats, agreement
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -388,12 +537,16 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     os.chdir(here)
+    from asy_vrnet_tpu_torch import config as tconfig
     from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.data.preprocess import maybe_normalize_image_device
     from asy_vrnet_tpu_torch.data.synthetic import make_batch
     from asy_vrnet_tpu_torch.infer.predictor import Detector
     from asy_vrnet_tpu_torch.models.cluster_block import ClusterBlock
     from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.models.layers import set_generator
     from asy_vrnet_tpu_torch.ops import block, kernels, simota_fused
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
     from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
     from asy_vrnet_tpu_torch.ops.boxes import decode_for_loss
     from asy_vrnet_tpu_torch.train.optim import adaptive_lr, set_learning_rate
@@ -488,17 +641,16 @@ def main() -> int:
     hooks = [m.register_forward_pre_hook(
         lambda m, a: seen.append((tuple(a[0].shape), m.heads, m.head_dim, m.fold_h)))
         for m in model.modules() if isinstance(m, ClusterBlock)]
-    for k in block.LAUNCHES:
-        block.LAUNCHES[k] = 0
+    reset_launches(block, cf)
     with torch.no_grad():
         det, seg = model(img, rad)
     torch.cuda.synchronize()
     launches = dict(block.LAUNCHES)
     for hk in hooks:
         hk.remove()
-    log(f"[main path] launches {launches}")
+    log(f"[main path] launches {launches}, {cf.LAUNCHES}")
     check(launches == {"mixer_block": 27, "mlp_block": 27, "mixer_block_bwd": 0,
-                       "mlp_block_bwd": 0}, launches)
+                       "mlp_block_bwd": 0} and not any(cf.LAUNCHES.values()), launches)
     want = {(b, c, h, w, heads, d, fold) for (_, b, h, w, c, heads, d, fold, _, _) in SHAPES}
     check({s + (hd, dd, f) for s, hd, dd, f in seen} == want, seen)
     check([tuple(o.shape) for o in det] == [(8, 64, 64, 9), (8, 32, 32, 9), (8, 16, 16, 9)],
@@ -856,7 +1008,10 @@ def main() -> int:
             bound_by="operations" if tot["flops_ms"] >= tot["bytes_ms"] else "bytes")
     del bwd_inputs
 
-    # ---- 8./9. train paths: r05 weights, 512^2, batch 16, bf16 ----
+    # ---- 8. the stand-alone cluster mix (K7, K7b) vs twins at the train batch ----
+    cl_stats, cl_agreement = check_cluster_mix(dev)
+
+    # ---- 9.-11. train paths: r05 weights, 512^2, batch 16, bf16 ----
     batches = [{k: torch.from_numpy(v).to(dev) for k, v in make_batch(
         np.random.default_rng(70 + i), TRAIN_BATCH, (512, 512), max_boxes=MAX_BOXES).items()}
         for i in range(5)]
@@ -866,15 +1021,20 @@ def main() -> int:
                 (block, "mlp_block_bwd", block.mlp_block_bwd_plain),
                 (segf, "seg_loss_sums", segf.seg_sums_plain),
                 (segf, "seg_loss_dlogits", segf.seg_dlogits_plain),
-                (simota_fused, "_kernel_batched", simota_fused._plain_batched)]
+                (simota_fused, "_kernel_batched", simota_fused._plain_batched),
+                (cf, "cluster_mix_fwd", cf.cluster_mix_fused_plain),
+                (cf, "cluster_mix_bwd", cf.cluster_mix_bwd_plain)]
+    counters = (block, cf, segf, simota_fused)
 
-    def run_train(tag, fused, steps):
+    def run_train(tag, fused, steps, blocks, mixes, variant="coc_small", drop_seed=None):
         """`steps` train steps from the r05 weights; launch counts of the
-        first; parameters, EMA and BN stats moved; the same first step
-        through the plain twins.  -> (state, step fn, history, launches,
-        peak GiB)."""
+        first (each fused block kernel `blocks` times, K7 and K7b `mixes`
+        times); parameters, EMA and BN stats moved; the same first step
+        through the plain twins, with drop-path (if any) drawing from a
+        generator seeded with `drop_seed` in both.  -> (state, step fn,
+        history, launches, peak GiB)."""
         tcfg = Config(
-            model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+            model=ModelConfig(phi="nano", variant=variant, compute_dtype="bfloat16",
                               input_size=(512, 512), seg_signed_logits=True,
                               use_pallas_cluster=fused),
             loss=LossConfig(max_boxes=MAX_BOXES, use_pallas_seg=True))
@@ -883,17 +1043,19 @@ def main() -> int:
         set_learning_rate(state.optimizer, lr)
         step = build_train_step(tcfg)                                # the card by default
         start = copy.deepcopy(state)
+        if drop_seed is not None:
+            set_generator(state.model, torch.Generator(device=dev).manual_seed(drop_seed))
         before = {k: v.clone() for k, v in float_state(state.model).items()}
         ema_before = {k: v.clone() for k, v in state.ema.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        reset_launches(block, segf, simota_fused)
+        reset_launches(*counters)
         state, first = step(state, batches[0])
         torch.cuda.synchronize()
-        launches = {**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}
+        launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
         log(f"[train {tag}] launches in one step {launches}")
-        n = 27 if fused else 0
-        want = {"mixer_block": n, "mlp_block": n, "mixer_block_bwd": n, "mlp_block_bwd": n,
+        want = {"mixer_block": blocks, "mlp_block": blocks, "mixer_block_bwd": blocks,
+                "mlp_block_bwd": blocks, "cluster_mix": mixes, "cluster_mix_bwd": mixes,
                 "seg_loss_sums": 1, "seg_loss_dlogits": 1}
         check({k: launches[k] for k in want} == want and launches["simota_assign"] >= 1,
               launches)
@@ -928,14 +1090,16 @@ def main() -> int:
         saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in plain_of]
         for mod, attr, fn in plain_of:
             setattr(mod, attr, fn)
-        reset_launches(block, segf, simota_fused)
+        if drop_seed is not None:
+            set_generator(start.model, torch.Generator(device=dev).manual_seed(drop_seed))
+        reset_launches(*counters)
         try:
             _, plain_first = step(start, batches[0])
             torch.cuda.synchronize()
         finally:
             for mod, attr, fn in saved:
                 setattr(mod, attr, fn)
-        check(not any({**block.LAUNCHES, **segf.LAUNCHES, **simota_fused.LAUNCHES}.values()),
+        check(not any(v for m in counters for v in m.LAUNCHES.values()),
               "the plain step launched no kernel")
         for k, v in history[0].items():
             pv = float(plain_first[k])
@@ -945,14 +1109,30 @@ def main() -> int:
             check(ok, f"first step {k}")
         return state, step, history, launches, peak
 
-    state, train_step, history, train_launches, train_peak = run_train("fused", True, 5)
-    mstate, mstep, mhistory, _, mpeak = run_train("module path", False, 2)
+    state, train_step, history, train_launches, train_peak = run_train("fused", True, 5, 27, 0)
+    mstate, mstep, mhistory, _, mpeak = run_train("module path", False, 2, 0, 0)
     for k in ("loss", "loss_det", "loss_seg"):
         v, mv = history[0][k], mhistory[0][k]
         log(f"[train fused vs module path] first step {k}: {v:.6f} vs {mv:.6f}")
         check(rel_diff(v, mv) <= 0.02, f"fused vs module path {k}")
 
-    # ---- 10. overfit one fixed 128^2 batch, f32, 30 steps, fused blocks ----
+    # ---- 11. stochastic depth: coc_small with drop_path_rate 0.1 (this
+    # process only); the 22 backbone blocks past stage 0's first take the
+    # module path with K7/K7b, the other 5 the fused blocks ----
+    tconfig.COC_VARIANTS[DROP_PATH_VARIANT] = dataclasses.replace(
+        tconfig.COC_VARIANTS["coc_small"], drop_path_rate=0.1)
+    dstate, dstep, dhistory, drop_launches, dpeak = run_train(
+        "stochastic depth", True, 5, 5, 22, variant=DROP_PATH_VARIANT, drop_seed=11)
+    reset_launches(block, cf)
+    dstate.model.eval()
+    with torch.no_grad():
+        dstate.model(maybe_normalize_image_device(batches[0]["image"]), batches[0]["radar"])
+    torch.cuda.synchronize()
+    log(f"[stochastic depth eval forward] launches {block.LAUNCHES} {cf.LAUNCHES}")
+    check(block.LAUNCHES["mixer_block"] == block.LAUNCHES["mlp_block"] == 27
+          and not any(cf.LAUNCHES.values()), "eval forward takes the fused blocks (JAX's gate)")
+
+    # ---- 12. overfit one fixed 128^2 batch, f32, 30 steps, fused blocks ----
     ocfg = Config(
         model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="float32",
                           input_size=(128, 128), seg_signed_logits=True,
@@ -1007,9 +1187,18 @@ def main() -> int:
         f"{train_module['profile']['device_ms']:.3f}, busy share "
         f"{train['profile']['busy_share']:.3f} vs {train_module['profile']['busy_share']:.3f}, "
         f"launches {train['profile']['launches']} vs {train_module['profile']['launches']}")
+    train_drop = time_step("stochastic depth", dstate, dstep, dpeak, dhistory)
+    log("[train step] stochastic depth vs fused: " + ", ".join(
+        f"{k} {train_drop[k]:.3f} vs {train[k]:.3f}"
+        for k in ("step_ms", "images_per_s", "peak_gib")) +
+        f", device busy ms {train_drop['profile']['device_ms']:.3f} vs "
+        f"{train['profile']['device_ms']:.3f}, busy share "
+        f"{train_drop['profile']['busy_share']:.3f} vs {train['profile']['busy_share']:.3f}, "
+        f"launches {train_drop['profile']['launches']} vs {train['profile']['launches']}")
     for cat in train["profile"]["by_category_ms"]:
         log(f"[train step device ms] {cat}: fused {train['profile']['by_category_ms'][cat]:.4f}, "
-            f"module path {train_module['profile']['by_category_ms'][cat]:.4f}")
+            f"module path {train_module['profile']['by_category_ms'][cat]:.4f}, stochastic "
+            f"depth {train_drop['profile']['by_category_ms'][cat]:.4f}")
     for kname in BWD_KERNELS:
         st = bwd_stats[kname]
         report.append({"name": kname, "route": "cuda", **BWD_KERNELS[kname],
@@ -1023,12 +1212,21 @@ def main() -> int:
                        "launches": train_launches[kname], "max_abs_err": st["max_abs_err"],
                        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                        "bound_by": st["bound_by"], "library_ms": None})
+    for kname in CLUSTER_KERNELS:
+        st = cl_stats[kname]
+        report.append({"name": kname, "route": "cuda", **CLUSTER_KERNELS[kname],
+                       "launches": drop_launches[kname], "max_abs_err": st["max_abs_err"],
+                       "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                       "bound_by": st["bound_by"], "library_ms": None,
+                       "per_shape": st["per_shape"]})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     log(f"[total] {time.time() - t_start:.1f} s")
     print(json.dumps({"forward": fwd, "train": train, "train_module_path": train_module,
+                      "train_stochastic_depth": train_drop,
+                      "cluster_mix_assignment_agreement_bf16": cl_agreement,
                       "mixer_assignment_agreement_bf16": stats_out["mixer_block"].get("agreement"),
                       "pack_assignment_agreement_bf16": pack_agreement,
                       "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"]}),

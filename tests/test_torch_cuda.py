@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from asy_vrnet_tpu_torch.ops import block, boxes, losses_seg_fused, simota_fused
+from asy_vrnet_tpu_torch.ops import block, boxes, cluster_fused, losses_seg_fused, simota_fused
 
 pytestmark = pytest.mark.cuda
 
@@ -419,3 +419,93 @@ def test_fused_train_step_on_card_matches_cpu(dev):
     for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):
         if a.is_floating_point():
             torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-3, msg=k)
+
+
+# ---------------------------------------------------------------------------
+# the stand-alone cluster mix, K7 (forward) and K7b (backward), against their
+# twins.  Tolerances as the mixer half (K7) and the block backward (K7b) of
+# the same dtype above; the twin of K7b is fed K7b's own assignment, which
+# must equal K7's (the same device code rebuilds it).  Two runs of each give
+# equal bits.
+# ---------------------------------------------------------------------------
+
+# (name, B, H, W, I, heads, fold, proposals): the four stochastic-depth
+# shapes of nano coc_small at 512^2 (a smaller batch), a neck-like one
+# (head_dim 24, 1024-token regions) and coc_tiny2's stage 0 (4x4 proposals)
+CLUSTER_SHAPES = [
+    ("stage0", 4, 128, 128, 128, 4, 8, 2),
+    ("stage1", 4, 64, 64, 128, 4, 4, 2),
+    ("stage2", 4, 32, 32, 256, 8, 2, 2),
+    ("stage3", 4, 16, 16, 256, 8, 1, 2),
+    ("p3", 2, 64, 64, 96, 4, 2, 2),
+    ("tiny2_stage0", 2, 128, 128, 96, 4, 8, 4),
+]
+
+
+def _cluster_setup(dev, shape, dt, seed):
+    _, b, h, w, inner, heads, fold, prop = shape
+    g = torch.Generator().manual_seed(seed)
+    feat, value, gy = (torch.randn(b, h, w, inner, generator=g).mul(sc).to(dev, dt)
+                       for sc in (1.0, 1.0, 0.5))
+    kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=prop, proposal_w=prop)
+    return feat, value, gy, torch.tensor([1.5, 0.2], device=dev), kw
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES, ids=[s[0] for s in CLUSTER_SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cluster_mix_kernel_matches_plain(dev, shape, dt):
+    feat, value, _, ab, kw = _cluster_setup(dev, shape, dt, 5)
+    before = cluster_fused.LAUNCHES["cluster_mix"]
+    out, asg = cluster_fused.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
+    again = cluster_fused.cluster_mix_fwd(feat, value, ab, **kw)
+    torch.cuda.synchronize()
+    assert cluster_fused.LAUNCHES["cluster_mix"] == before + 2
+    assert torch.equal(out, again) and out.dtype == dt
+    ref, rasg = cluster_fused.cluster_mix_fused_plain(feat, value, ab, return_assign=True, **kw)
+    diff = (out.float() - ref.float()).abs()
+    scale = ref.float().abs().max().item()
+    agree = (asg == rasg).float().mean().item()
+    if dt == torch.float32:
+        assert agree >= 0.9999 and diff.max().item() <= 1e-4 * max(1.0, scale)
+    else:
+        assert agree >= 0.99 and diff.mean().item() <= 0.02 * scale
+        assert diff.max().item() <= scale + 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+
+
+@pytest.mark.parametrize("shape", CLUSTER_SHAPES, ids=[s[0] for s in CLUSTER_SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cluster_mix_bwd_kernel_matches_plain(dev, shape, dt):
+    feat, value, gy, ab, kw = _cluster_setup(dev, shape, dt, 6)
+    _, asg = cluster_fused.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
+    before = cluster_fused.LAUNCHES["cluster_mix_bwd"]
+    got = cluster_fused.cluster_mix_bwd(feat, value, gy, ab, return_assign=True, **kw)
+    again = cluster_fused.cluster_mix_bwd(feat, value, gy, ab, **kw)
+    torch.cuda.synchronize()
+    assert cluster_fused.LAUNCHES["cluster_mix_bwd"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got[:3], again))
+    assert torch.equal(got[3], asg)
+    want = cluster_fused.cluster_mix_bwd_plain(feat, value, gy, ab, assign=got[3], **kw)
+    assert got[0].dtype == got[1].dtype == dt and got[2].dtype == torch.float32
+    for name, a, w_ in zip(("dxn", "dvalue", "dab"), got[:3], want):
+        _bwd_close("dxn" if name == "dvalue" else name, a, w_, dt)
+
+
+def test_cluster_mix_fused_gradients_on_card_match_cpu(dev):
+    """`cluster_mix_fused` under autograd, f32: the card (K7, K7b) against
+    the CPU (their twins) at a nano stage-2 shape, every gradient within
+    1e-4 of its scale."""
+    feat, value, gy, _, kw = _cluster_setup(dev, ("stage2", 2, 32, 32, 256, 8, 2, 2),
+                                            torch.float32, 7)
+    res = {}
+    for device in (dev, torch.device("cpu")):
+        args = [t.detach().to(device).requires_grad_(True) for t in
+                (feat, value, torch.tensor([1.3]), torch.tensor([-0.2]))]
+        before = dict(cluster_fused.LAUNCHES)
+        out = cluster_fused.cluster_mix_fused(*args, **kw)
+        (out * gy.to(device)).sum().backward()
+        launched = {k: cluster_fused.LAUNCHES[k] - before[k] for k in before}
+        assert launched == ({"cluster_mix": 1, "cluster_mix_bwd": 1} if device == dev
+                            else {"cluster_mix": 0, "cluster_mix_bwd": 0})
+        res[device.type] = [out.detach().cpu()] + [a.grad.cpu() for a in args]
+    for name, a, b in zip(("out", "dfeat", "dvalue", "dalpha", "dbeta"), res["cuda"], res["cpu"]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), name

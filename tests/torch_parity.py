@@ -138,25 +138,22 @@ def train_configs(multitask_mode: str = "fixed", size: int = 64,
     return make(jc, None), make(tc, True)
 
 
-def jax_train_setup(jcfg, tcfg, size: int = 64, lr: float = 1e-2, seed: int = 0):
-    """-> (jax model, JAX TrainState, tx).  The weights are the port's own
-    initialisation plus N(0, 0.05) noise (so LayerScale, the norms' affines
-    and alpha/beta all matter), carried to flax through the bridge's inverse;
-    the flax tree's structure comes from `jax.eval_shape`, which compiles
-    nothing."""
+def noisy_model_pair(jmodel_cfg, tmodel_cfg, size: int, seed: int):
+    """-> (jax model, params, batch_stats, port model on the CPU) with the
+    same weights: the port's own initialisation plus N(0, 0.05) noise (so
+    LayerScale, the norms' affines and alpha/beta all matter), carried to
+    flax through the bridge's inverse; the flax tree's structure comes from
+    `jax.eval_shape`, which compiles nothing."""
     import torch
-
-    from asy_vrnet_tpu.train.optim import set_learning_rate
-    from asy_vrnet_tpu.train.state import create_train_state
 
     from asy_vrnet_tpu_torch.utils.weights import flax_from_state_dict
 
     torch.manual_seed(seed)       # the port's init draws from the global generator
-    jm = jax_create_model(jcfg.model)
+    jm = jax_create_model(jmodel_cfg)
     zeros = lambda c: np.zeros((1, size, size, c), np.float32)  # noqa: E731
     like = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), zeros(3), zeros(4),
                                           train=False))
-    port = create_model(tcfg.model, device="cpu")
+    port = create_model(tmodel_cfg, device="cpu")
     g = torch.Generator().manual_seed(seed + 1)
     with torch.no_grad():
         for p in port.parameters():
@@ -164,6 +161,15 @@ def jax_train_setup(jcfg, tcfg, size: int = 64, lr: float = 1e-2, seed: int = 0)
     sd = port.state_dict()
     params = jax.tree.map(jnp.asarray, flax_from_state_dict(sd, like["params"]))
     bstats = jax.tree.map(jnp.asarray, flax_from_state_dict(sd, like["batch_stats"]))
+    return jm, params, bstats, port
+
+
+def jax_train_setup(jcfg, tcfg, size: int = 64, lr: float = 1e-2, seed: int = 0):
+    """-> (jax model, JAX TrainState, tx), weights from `noisy_model_pair`."""
+    from asy_vrnet_tpu.train.optim import set_learning_rate
+    from asy_vrnet_tpu.train.state import create_train_state
+
+    jm, params, bstats, _ = noisy_model_pair(jcfg.model, tcfg.model, size, seed)
     state, tx = create_train_state(jcfg, params, bstats)
     return jm, state.replace(opt_state=set_learning_rate(state.opt_state, lr)), tx
 
@@ -278,3 +284,97 @@ def check_second_step(r):
             np.testing.assert_allclose(float(m[k]), float(r["jm2"][k]), rtol=1e-3, err_msg=k)
     assert own.step == bridged.step == 2
     return own, bridged
+
+
+# ---------------------------------------------------------------------------
+# stochastic depth: the module-path blocks whose cluster mix is the
+# stand-alone kernel pair (K7/K7b)
+# ---------------------------------------------------------------------------
+
+DROPPATH_VARIANT = "coc_dryrun_droppath"
+
+
+def register_droppath_variant(monkeypatch, rate: float = 1e-9):
+    """coc_dryrun with `drop_path_rate = rate`, in both packages' variant
+    tables for the calling test only."""
+    import dataclasses
+
+    from asy_vrnet_tpu import config as jconfig
+    from asy_vrnet_tpu_torch import config as tconfig
+
+    for mod in (jconfig, tconfig):
+        v = dataclasses.replace(mod.COC_VARIANTS["coc_dryrun"], drop_path_rate=rate)
+        monkeypatch.setitem(mod.COC_VARIANTS, DROPPATH_VARIANT, v)
+
+
+def check_stochastic_depth_step(monkeypatch, size: int, mix_calls: int):
+    """A stochastic-depth model's train-mode forward and every parameter's
+    gradient under a seeded output cotangent, JAX against the port, f32,
+    batch 2; `mix_calls` blocks take the stand-alone kernel pair in the
+    port (its twins, counted on the wrappers).
+
+    Weights: `noisy_model_pair`'s seed-1 draw (no ReLU input within f32
+    rounding of 0 here).  Tolerances: outputs atol 5e-5, rtol 1e-4
+    (check_forward_and_boxes's); gradients rtol 1e-4 and atol 2e-5 * G,
+    with G the largest |gradient| of any parameter (511 at 128^2): the
+    gradients span five decades, and f32 sums in another order through
+    the whole backward leave errors of G's size in the small ones, e.g.
+    a bias in front of a batch-stat BatchNorm, whose true gradient is 0
+    (measured: at most 1.2e-5 * G)."""
+    import torch
+
+    from asy_vrnet_tpu import config as jconfig
+
+    from asy_vrnet_tpu_torch import config as tconfig
+    from asy_vrnet_tpu_torch.models.layers import set_generator
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.utils.weights import flax_from_state_dict
+
+    register_droppath_variant(monkeypatch)
+    kw = dict(phi="nano", variant=DROPPATH_VARIANT, compute_dtype="float32",
+              use_pallas_cluster=True, prestem_s2d=False, input_size=(size, size))
+    jm, params, bstats, port = noisy_model_pair(jconfig.ModelConfig(**kw),
+                                                tconfig.ModelConfig(**kw), size, seed=1)
+    img, rad = inputs(size)
+
+    def fwd(p):
+        out, _ = jm.apply({"params": p, "batch_stats": bstats}, img, rad, train=True,
+                          rngs={"droppath": jax.random.PRNGKey(0)}, mutable=["batch_stats"])
+        return out
+
+    rng = np.random.default_rng(5)
+    cot = jax.tree.map(lambda s: rng.standard_normal(s.shape).astype(np.float32),
+                       jax.eval_shape(fwd, params))
+
+    @jax.jit
+    def fwd_bwd(p, c):
+        out, vjp = jax.vjp(fwd, p)
+        return out, vjp(c)[0]
+
+    (jdet, jseg), jgrad = fwd_bwd(params, cot)
+
+    calls = {"cluster_mix_fwd": 0, "cluster_mix_bwd": 0}
+    for name in calls:
+        real = getattr(cf, name)
+        monkeypatch.setattr(cf, name, lambda *a, _n=name, _r=real, **k: (
+            calls.__setitem__(_n, calls[_n] + 1), _r(*a, **k))[1])
+    port.train()
+    set_generator(port, torch.Generator().manual_seed(0))
+    det, seg = port(torch.from_numpy(img), torch.from_numpy(rad))
+    cdet, cseg = cot
+    total = sum((o * torch.from_numpy(c)).sum() for o, c in zip(det, cdet))
+    (total + (seg * torch.from_numpy(cseg)).sum()).backward()
+    assert calls == {"cluster_mix_fwd": mix_calls, "cluster_mix_bwd": mix_calls}
+
+    for a, b in zip((*det, seg), (*jdet, jseg)):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), atol=5e-5, rtol=1e-4)
+    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+             for k, p in port.named_parameters()}
+    got = jax.tree_util.tree_leaves(flax_from_state_dict(grads, params))
+    want = jax.tree_util.tree_leaves_with_path(jgrad)
+    assert len(got) == len(want) == len(grads)
+    scale = max(float(np.abs(np.asarray(w)).max()) for _, w in want)
+    for (path, w), g in zip(want, got):
+        w = np.asarray(w)
+        np.testing.assert_allclose(np.asarray(g).reshape(w.shape), w, rtol=1e-4,
+                                   atol=2e-5 * scale, err_msg=jax.tree_util.keystr(path))
