@@ -2,12 +2,12 @@
 
 The same dataclasses, defaults and JSON round trip as the JAX package's
 `asy_vrnet_tpu/config.py`, so one config file drives both packages.  The port
-keeps its own copy and never imports the JAX package.  Fields that only steer
-the TPU build (`use_pallas_cluster`'s and `use_pallas_seg`'s Pallas wording,
-`prestem_s2d`, `train_remat`) are kept for the round trip; the port reads
+keeps its own copy and never imports the JAX package.  It reads
 `use_pallas_cluster` as "use the fused ClusterBlock kernels" (forward and
-backward) and `use_pallas_seg` as "use the fused seg-loss kernel", and always
-takes the literal pre-stem entry.
+backward), `use_pallas_seg` as "use the fused seg-loss kernel", and
+`train_remat` as the JAX package does (the backbone spans rematerialised in
+training, `models/remat.py`).  `prestem_s2d` only steers the TPU build and is
+kept for the round trip: the port always takes the literal pre-stem entry.
 """
 from __future__ import annotations
 

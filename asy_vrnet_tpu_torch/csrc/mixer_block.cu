@@ -47,21 +47,25 @@
 // Numerics mirror the TPU kernel: xn, feat (for the cosine), feat^2 (for the
 // norms), the token inverse norms, the centers, the sims, the aggregated
 // centers and the fc2-projected centers are rounded to the working type where
-// that kernel casts them to its matrix-unit type; every sum is f32.
+// that kernel casts them to its matrix-unit type; every sum is f32.  Phases A
+// and B (and the mixed centers) are the device code of mixer_block.cuh, which
+// the full-remat backward (K6r) runs too, so that it rebuilds this kernel's
+// assignment bit for bit.
 #include <cooperative_groups.h>
 
 #include <algorithm>
 
 #include "common.cuh"
+#include "mixer_block.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
+using asy::mix::kChunk;  // tokens per sweep-B chunk
+using asy::mix::kLanes;  // lanes per (token, head) in the assignment
+using asy::mix::kSplit;  // fixed token splits of the aggregation
 constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // tokens per sweep-B chunk
-constexpr int kSplit = 8;   // fixed token splits of the aggregation
-constexpr int kLanes = 8;   // lanes per (token, head) in the assignment
 
 struct Geo {
   int B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, N, ph, pw, M;
@@ -157,47 +161,18 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   for (int e = tid; e < hpc * M; e += kThreads) rs[e] = cnt[e] = 0.f;
 
   // ---- A. centers: adaptive-average pool in input space, then project ----
-  for (int e = tid; e < M * C; e += kThreads) {
-    const int m = e / C, c = e % C;
-    const int pi = m / g.pw, pj = m % g.pw;
-    const int lh = (pi * g.rh) / g.ph, hh = ((pi + 1) * g.rh + g.ph - 1) / g.ph;
-    const int lw = (pj * g.rw) / g.pw, hw = ((pj + 1) * g.rw + g.pw - 1) / g.pw;
-    const float wgt = rnd<T>((1.f / (hh - lh)) * (1.f / (hw - lw)));
-    float acc = 0.f;
-    for (int i = lh; i < hh; ++i)
-      for (int j = lw; j < hw; ++j) acc = fmaf(wgt, norm_in(x[tok(i * g.rw + j) + c]), acc);
-    cin[e] = rnd<T>(acc);
+  auto wf_col = [&](int c, int j) { return to_f<T>(wf[(size_t)c * I + col0 + j]); };
+  auto wv_col = [&](int c, int j) { return to_f<T>(wv[(size_t)c * I + col0 + j]); };
+  asy::mix::project_centers<T>([&](int n, int c) { return norm_in(x[tok(n) + c]); },
+                               wf_col, wv_col, bf + col0, bv + col0, C, Dg, D, hpc, M,
+                               g.rh, g.rw, g.ph, g.pw, cin, cn, vc, invc);
+  if (crep_out != nullptr) {
+    for (int e = tid; e < M * Dg; e += kThreads)
+      crep_out[center(e / Dg, e % Dg)] = asy::from_f<T>(cn[e]);
   }
-  __syncthreads();
-  for (int e = tid; e < M * Dg; e += kThreads) {
-    const int m = e / Dg, i = col0 + e % Dg;
-    float af = 0.f, av = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float ci = cin[m * C + c];
-      af = fmaf(ci, to_f<T>(wf[(size_t)c * I + i]), af);
-      av = fmaf(ci, to_f<T>(wv[(size_t)c * I + i]), av);
-    }
-    cn[e] = af + bf[i];
-    vc[e] = av + bv[i];
-    if (crep_out != nullptr) crep_out[center(m, e % Dg)] = asy::from_f<T>(cn[e]);
-  }
-  __syncthreads();
-  for (int e = tid; e < M * hpc; e += kThreads) {
-    const int m = e / hpc, hl = e % hpc;
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float v = cn[m * Dg + hl * D + d];
-      s = fmaf(v, v, s);
-    }
-    invc[e] = rsqrtf(s + 1e-12f);
-  }
-  __syncthreads();
-  for (int e = tid; e < M * Dg; e += kThreads)
-    cn[e] = rnd<T>(cn[e] * invc[(e / Dg) * hpc + (e % Dg) / D]);
-  __syncthreads();
+  asy::mix::normalise_centers<T>(cn, invc, cn, M, Dg, D, hpc);
 
   // ---- B. assign + aggregate, chunk by chunk ----
-  const int C4 = C / 4;
   const int sub = tid % kLanes;
   for (int n0 = 0; n0 < N; n0 += kChunk) {
     const int nt = min(kChunk, N - n0);
@@ -206,55 +181,20 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       xs[e] = t < nt ? norm_in(x[tok(n0 + t) + c]) : 0.f;
     }
     __syncthreads();
-    // feat columns of the CTA's heads; thread (tg, j) owns tokens tg + 8k
-    for (int e = tid; e < 8 * Dg; e += kThreads) {
-      const int j = e % Dg, tg = e / Dg, i = col0 + j;
-      float acc[4] = {0.f, 0.f, 0.f, 0.f};
-      for (int c4 = 0; c4 < C4; ++c4) {
-        const float w0 = to_f<T>(wf[(size_t)(4 * c4 + 0) * I + i]);
-        const float wa = to_f<T>(wf[(size_t)(4 * c4 + 1) * I + i]);
-        const float wb = to_f<T>(wf[(size_t)(4 * c4 + 2) * I + i]);
-        const float wc = to_f<T>(wf[(size_t)(4 * c4 + 3) * I + i]);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const float4 xv = reinterpret_cast<const float4*>(xs + (tg + 8 * k) * C)[c4];
-          acc[k] = fmaf(xv.x, w0, fmaf(xv.y, wa, fmaf(xv.z, wb, fmaf(xv.w, wc, acc[k]))));
-        }
-      }
-#pragma unroll
-      for (int k = 0; k < 4; ++k) fs[(tg + 8 * k) * DP + j] = acc[k] + bf[i];
-    }
+    asy::mix::feat_chunk<T>(xs, C, wf_col, bf + col0, Dg, DP, fs);
     __syncthreads();
     // per (token, head), kLanes lanes each: cosine to the M centers and the
     // first-max assignment.  kChunk*hpc items is a multiple of the 32 items
     // a pass covers, so every lane of a warp runs the same iterations.
     for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
       const int t = it % kChunk, hl = it / kChunk;
-      const float* f = fs + t * DP + hl * D;
-      float n2 = 0.f;
-      for (int d = sub; d < D; d += kLanes) n2 += rnd<T>(f[d] * f[d]);
-      for (int o = kLanes / 2; o > 0; o >>= 1) n2 += __shfl_xor_sync(0xffffffffu, n2, o);
-      const float inv = rnd<T>(rsqrtf(n2 + 1e-12f));
-      float best = 0.f, cbest = 0.f;
-      int arg = 0;
-      for (int m = 0; m < M; ++m) {
-        const float* cm = cn + m * Dg + hl * D;
-        float raw = 0.f;
-        for (int d = sub; d < D; d += kLanes) raw = fmaf(cm[d], rnd<T>(f[d]), raw);
-        for (int o = kLanes / 2; o > 0; o >>= 1) raw += __shfl_xor_sync(0xffffffffu, raw, o);
-        const float cs = raw * inv;
-        const float lg = beta + alpha * cs;
-        if (m == 0 || lg > best) {  // strict >: the first max wins
-          best = lg;
-          arg = m;
-          cbest = cs;
-        }
-      }
+      const asy::mix::Winner win =
+          asy::mix::assign<T>(fs + t * DP + hl * D, cn + hl * D, Dg, D, M, alpha, beta, sub);
       if (sub == 0 && t < nt) {
-        sg[(n0 + t) * hpc + hl] = 1.f / (1.f + expf(-best));
-        asg[(n0 + t) * hpc + hl] = (unsigned char)arg;
+        sg[(n0 + t) * hpc + hl] = asy::mix::sigmoid(win.best);
+        asg[(n0 + t) * hpc + hl] = (unsigned char)win.arg;
         if (cbest_out != nullptr)
-          cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(cbest);
+          cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(win.cos);
       }
     }
     __syncthreads();
@@ -290,12 +230,9 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   __syncthreads();
   float* oc = fs;  // [M][Dg]
   for (int e = tid; e < M * Dg; e += kThreads) {
-    const int m = e / Dg, j = e % Dg, hm = (j / D) * M + m, i = col0 + j;
-    float acc = 0.f;
-    for (int c = 0; c < C; ++c)
-      acc = fmaf(aggp[hm * C + c], to_f<T>(wv[(size_t)c * I + i]), acc);
-    const float agg = acc + rs[hm] * bv[i];
-    oc[e] = rnd<T>((agg + vc[e]) * (1.f / (cnt[hm] + 1.f)));
+    const int m = e / Dg, j = e % Dg, hm = (j / D) * M + m;
+    oc[e] = asy::mix::mixed_center<T>(aggp + hm * C, [&](int c) { return wv_col(c, j); }, C,
+                                      rs[hm], bv[col0 + j], vc[e], cnt[hm]);
     if (oc_out != nullptr) oc_out[center(m, j)] = asy::from_f<T>(oc[e]);
   }
   __syncthreads();

@@ -1,24 +1,37 @@
-// Backward of the mixer half of a ClusterBlock, fused, from the forward's
-// residual pack (mixer_block.cu writes it in training):
+// Backward of the mixer half of a ClusterBlock, fused:
 //   out = x + fc2(cluster_mix(fc1(xn), fc_v(xn))),  xn = (x - mu) * rstd
 // given g = d out, computes the cotangent of xn, the folded-weight gradients
 // dWf, dbf, dWv, dbv, dW2 and db2 summed over the batch, d alpha and d beta,
 // and per-sample sum(dxn) and sum(dxn * xn) from the f32 dxn, which the
-// GroupNorm input gradient needs.
+// GroupNorm input gradient needs.  Two bodies, as the TPU kernel has:
 //
-// Replaces the TPU kernel asy_vrnet_tpu/ops/block_pallas.py::_mixer_bwd_pallas
-// with its residual body (_mixer_bwd_kernel_res + _mixer_bwd_tail), reached
-// through the custom VJP of fused_mixer_block_stats.  Like it, the kernel
-// rebuilds feat, the per-head token norms and the pooled tokens from x and
-// never recomputes the assignment: the similarity plane comes from the
-// stored winning cosine and proposal, so the cotangent of the raw plane is
-// rebuilt as dcos * cbest / invr on the winner, exact because dcos is zero
-// elsewhere.  The TPU kernel's dense masked (rows x tokens) planes are not
-// carried over: everything is per (token, head) at the winner.  Roundings to
-// the working type where that kernel casts to its matrix-unit type.
+// K6, from the forward's residual pack (mixer_block.cu writes it in
+// training).  Replaces asy_vrnet_tpu/ops/block_pallas.py::_mixer_bwd_pallas
+// with its residual body (_mixer_bwd_kernel_res + _mixer_bwd_tail).  Like
+// it, the kernel rebuilds feat, the per-head token norms and the pooled
+// tokens from x and never recomputes the assignment: the similarity plane
+// comes from the stored winning cosine and proposal, so the cotangent of
+// the raw plane is rebuilt as dcos * cbest / invr on the winner, exact
+// because dcos is zero elsewhere.
+//
+// K6r, with the full forward remat (no pack: the path under
+// ASY_MIXER_BWD_RESIDUALS=0, the JAX package's memory-lean setting).
+// Replaces the same pallas_call with its body _mixer_bwd_kernel +
+// _mixer_bwd_tail.  Before the sweeps a block rebuilds what K2's phases A
+// and B compute for its heads, with K2's own device code
+// (mixer_block.cuh): the pooled centers, projected and normalised; per
+// (token, head) the cosines, the first max and the winner's sigmoid; the
+// counts and the sim-weighted sums of xn in K2's fixed token splits; the
+// mixed centers.  So it differentiates the assignment K2 made, bit for bit,
+// and the raw plane's cotangent takes the remat's own raw product.
+//
+// The TPU kernel's dense masked (rows x tokens) planes are not carried
+// over: everything is per (token, head) at the winner.  Roundings to the
+// working type where that kernel casts to its matrix-unit type.
 //
 // What bounds it on the H100: per token ~6*C*I flops (feat recompute, dfeat
-// @ wf^T, xn^T dfeat) plus ~4*C*heads, against 6*C bytes of bf16 traffic:
+// @ wf^T, xn^T dfeat) plus ~4*C*heads, against 6*C bytes of bf16 traffic
+// (K6r: + 2*C*I + 2*I*(M+1) for the forward remat, and no pack to read):
 // bound by bytes on paper at every nano shape.  This first kernel runs FMA
 // on CUDA cores from shared memory, with short per-(token, head) dot
 // products, so it is bound by latency and shared-memory traffic instead.
@@ -26,19 +39,22 @@
 // Design.  Two kernels.
 //   1. One block per (sample, region, head group); the caller picks the
 //      number G of head groups so that the batch's regions fill the card.
-//      Sweep 1 over the region's tokens in chunks of 32 (from device memory,
-//      L2): pooled tokens, per (head, proposal) counts, sum of sims, and the
-//      sim-weighted sums of xn and g, in `split` fixed token classes (no
-//      atomics).  Then the per-(head, proposal) algebra: fc2-projected
-//      centers, d oc, d agg, d aggx, and the block's columns of dW2, dWv and
-//      dbv, which need no further token pass.  Sweep 2: feat of the block's
-//      columns (their wf columns staged in shared memory), per (token,
-//      head) the winner's d sim, d alpha/beta, d raw
-//      and d norm (8 lanes each), d feat; the d centers sums, dbf and dWf
-//      accumulate with one owner thread per element; the block's share of
-//      dxn (dispatch of d aggx plus dfeat @ wf^T) goes to an f32 scratch
-//      plane of its head group.  Last, d c_rep -> dWf, dbf and d cin (the
-//      pooled rows' cotangent) of its columns.
+//      (K6r first: the centers, phase A of K2.)  Sweep 1 over the region's
+//      tokens in chunks of 32 (from device memory, L2): pooled tokens (K6),
+//      per (head, proposal) counts, sum of sims, and the sim-weighted sums
+//      of xn and g, in fixed token classes (no atomics; K6r: K2's kSplit
+//      classes for the xn sums), K6r rebuilding each chunk's feat and
+//      assignment first.  Then the per-(head, proposal) algebra (K6r: the
+//      mixed centers first): fc2-projected centers, d oc, d agg, d aggx,
+//      and the block's columns of dW2, dWv and dbv, which need no further
+//      token pass.  Sweep 2: feat of the block's columns (their wf columns
+//      staged in shared memory; K6r: the assignment again), per (token,
+//      head) the winner's d sim, d alpha/beta, d raw and d norm (8 lanes
+//      each), d feat; the d centers sums, dbf and dWf accumulate with one
+//      owner thread per element; the block's share of dxn (dispatch of d
+//      aggx plus dfeat @ wf^T) goes to an f32 scratch plane of its head
+//      group.  Last, d c_rep -> dWf, dbf and d cin (the pooled rows'
+//      cotangent) of its columns.
 //   2. One block per 256 tokens of a sample: dxn = sum of the G scratch
 //      planes + pool^T (sum over groups of d cin), rounded once; GroupNorm
 //      sums and db2 per block.
@@ -51,28 +67,33 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "mixer_block.cuh"
 
 namespace {
 
+using asy::mix::kChunk;  // tokens per sweep chunk
+using asy::mix::kLanes;  // lanes per (token, head)
 constexpr int kThreads = 256;
-constexpr int kChunk = 32;  // tokens per sweep chunk
-constexpr int kLanes = 8;   // lanes per (token, head)
 constexpr int kTile = 256;  // tokens per epilogue block
 
 struct Geo {
   int B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, N, ph, pw, M;
   int G, hpc, Dg, P, split;  // head groups, heads per group, its columns, hpc*M, splits
+  int splitx;                // splits of the xn sums (K6r: K2's kSplit)
 };
 
 struct Lay {  // offsets in floats
-  size_t xs, gs, fs, dfs, cbs, sg, ag, drw, dn2, pw, cin, cn, invc, ocb, dagg, dcn, ocw,
-      daggx, aggx, docw, cnt, rsum, drs, icnt, accx, accg, pdwf, pdbf, dcp, wfs, red, floats;
+  size_t xs, gs, fs, dfs, cbs, sg, ag, drw, dn2, rawc, pw, cin, cn, invc, ocb, dagg, dcn,
+      ocw, daggx, aggx, docw, cnt, rsum, drs, icnt, accx, accg, pdwf, pdbf, dcp, wfs, crp,
+      cnr, vcr, invr, red, floats;
 };
 
-inline Lay layout(const Geo& g) {
+// remat: the K6r buffers (the winner's raw product, K2's centers)
+inline Lay layout(const Geo& g, bool remat) {
   Lay L;
   size_t o = 0;
   const size_t C = g.C, DP = g.Dg + kLanes, P = g.P, D = g.D, T = (size_t)kChunk * g.hpc;
+  const size_t MD = remat ? (size_t)g.M * g.Dg : 0;
   L.xs = o;    o += kChunk * C;
   L.gs = o;    o += kChunk * C;
   L.fs = o;    o += kChunk * DP;
@@ -82,6 +103,7 @@ inline Lay layout(const Geo& g) {
   L.ag = o;    o += T;
   L.drw = o;   o += T;
   L.dn2 = o;   o += T;
+  L.rawc = o;  o += remat ? T : 0;
   L.pw = o;    o += (size_t)kChunk * g.M;
   L.cin = o;   o += (size_t)g.M * C;
   L.cn = o;    o += P * D;
@@ -97,12 +119,16 @@ inline Lay layout(const Geo& g) {
   L.rsum = o;  o += P;
   L.drs = o;   o += P;
   L.icnt = o;  o += P;
-  L.accx = o;  o += (size_t)g.split * P * C;
+  L.accx = o;  o += (size_t)g.splitx * P * C;
   L.accg = o;  o += (size_t)g.split * P * C;
   L.pdwf = o;  o += C * g.Dg;
   L.pdbf = o;  o += g.Dg;
   L.dcp = o;   o += (size_t)g.M * g.Dg;
   L.wfs = o;   o += C * (g.Dg + 1);
+  L.crp = o;   o += MD;
+  L.cnr = o;   o += MD;
+  L.vcr = o;   o += MD;
+  L.invr = o;  o += remat ? (size_t)g.M * g.hpc : 0;
   L.red = o;   o += 2 * (kThreads / 32);
   L.floats = o;
   return L;
@@ -120,9 +146,7 @@ __device__ __forceinline__ float pool_weight(const Geo& g, int n, int m) {
   return asy::rnd<T>((1.f / (hh - lh)) * (1.f / (hw - lw)));
 }
 
-__device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
-
-template <typename T>
+template <typename T, bool kRemat>
 __global__ void __launch_bounds__(kThreads)
 mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
                  const float* __restrict__ stats, const T* __restrict__ wf,
@@ -132,7 +156,7 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
                  const int8_t* __restrict__ argf, const T* __restrict__ crep,
                  const T* __restrict__ ocr, float* __restrict__ scratch,
                  float* __restrict__ dcin, float* __restrict__ wpart,
-                 float* __restrict__ dab, Geo g, Lay L) {
+                 float* __restrict__ dab, int8_t* __restrict__ assign_out, Geo g, Lay L) {
   using asy::rnd;
   using asy::to_f;
   extern __shared__ float4 smem4[];
@@ -146,6 +170,7 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   float* ag = sm + L.ag;        // [kChunk][hpc] winning proposal (-1: no token)
   float* drw = sm + L.drw;      // [kChunk][hpc] rounded d raw at the winner
   float* dn2 = sm + L.dn2;      // [kChunk][hpc] rounded d norm^2
+  float* rawc = sm + L.rawc;    // [kChunk][hpc] K6r: the winner's raw product
   float* pw = sm + L.pw;        // [kChunk][M] pooling weights
   float* cin = sm + L.cin;      // [M][C] pooled xn (rounded)
   float* cn = sm + L.cn;        // [P][D] normalised centers (f32)
@@ -161,12 +186,16 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   float* rsum = sm + L.rsum;    // [P] sum of sims
   float* drs = sm + L.drs;      // [P] d rowsum(sim)
   float* icnt = sm + L.icnt;    // [P] 1 / (count + 1)
-  float* accx = sm + L.accx;    // [split][P][C]
+  float* accx = sm + L.accx;    // [splitx][P][C]
   float* accg = sm + L.accg;    // [split][P][C]
   float* pdwf = sm + L.pdwf;    // [C][Dg] dWf of the group's columns
   float* pdbf = sm + L.pdbf;    // [Dg]
   float* dcp = sm + L.dcp;      // [M][Dg] d c_rep of the group's columns
   float* wfs = sm + L.wfs;      // [C][Dg + 1] the group's wf columns
+  float* crp = sm + L.crp;      // K6r, K2's layout: [M][Dg] raw centers (f32)
+  float* cnr = sm + L.cnr;      //   [M][Dg] normalised centers (rounded)
+  float* vcr = sm + L.vcr;      //   [M][Dg] value centers (f32)
+  float* invr_c = sm + L.invr;  //   [M][hpc] center inverse norms
   float* red = sm + L.red;
 
   const int C = g.C, I = g.I, D = g.D, M = g.M, N = g.N, hpc = g.hpc, Dg = g.Dg, P = g.P;
@@ -183,6 +212,7 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   auto tok = [&](int n) -> size_t {  // token index in (B, H, W)
     return (size_t)(b * g.H + row0 + n / g.rw) * g.W + cl0 + n % g.rw;
   };
+  auto norm_in = [&](size_t o) { return rnd<T>((to_f<T>(x[o]) - mu) * rstd); };
   auto wf_at = [&](int c, int j) { return wfs[c * (Dg + 1) + j]; };
   auto wv_at = [&](int c, int j) { return to_f<T>(wv[(size_t)c * I + col0 + j]); };
   auto load_chunk = [&](int n0, int nt) {
@@ -190,16 +220,17 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
       const int t = e / C, c = e % C;
       const bool ok = t < nt;
       const size_t o = ok ? tok(n0 + t) * C + c : 0;
-      xs[e] = ok ? rnd<T>((to_f<T>(x[o]) - mu) * rstd) : 0.f;
+      xs[e] = ok ? norm_in(o) : 0.f;
       gs[e] = ok ? to_f<T>(gout[o]) : 0.f;
     }
+    if (kRemat) return;  // the assignment comes from assign_chunk
     for (int e = tid; e < kChunk * hpc; e += kThreads) {
       const int t = e / hpc, hl = e % hpc;
       float cb = 0.f, s = 0.f, a = -1.f;
       if (t < nt) {
         const size_t o = tok(n0 + t) * g.heads + h0 + hl;
         cb = to_f<T>(cbest[o]);
-        s = sigmoid(beta + alpha * cb);
+        s = asy::mix::sigmoid(beta + alpha * cb);
         a = (float)argf[o];
       }
       cbs[e] = cb;
@@ -211,12 +242,42 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
       pw[e] = t < nt ? pool_weight<T>(g, n0 + t, e % M) : 0.f;
     }
   };
+  // K6r: the chunk's feat and K2's assignment of its (token, head) items
+  // (kChunk*hpc items, a multiple of the 32 a pass covers, so every lane of
+  // a warp runs the same iterations of the shuffles)
+  auto assign_chunk = [&](int n0, int nt, bool record) {
+    asy::mix::feat_chunk<T>(xs, C, wf_at, bf + col0, Dg, DP, fs);
+    __syncthreads();
+    for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
+      const int t = it % kChunk, hl = it / kChunk, q = t * hpc + hl;
+      const asy::mix::Winner win =
+          asy::mix::assign<T>(fs + t * DP + hl * D, cnr + hl * D, Dg, D, M, alpha, beta, sub);
+      if (sub == 0) {
+        const bool ok = t < nt;
+        cbs[q] = ok ? win.cos : 0.f;
+        sg[q] = ok ? asy::mix::sigmoid(win.best) : 0.f;
+        ag[q] = ok ? (float)win.arg : -1.f;
+        rawc[q] = ok ? win.raw : 0.f;
+        if (ok && record && assign_out != nullptr)
+          assign_out[tok(n0 + t) * g.heads + h0 + hl] = (int8_t)win.arg;
+      }
+    }
+  };
 
   for (int e = tid; e < C * Dg; e += kThreads)
     wfs[(e / Dg) * (Dg + 1) + e % Dg] = to_f<T>(wf[(size_t)(e / Dg) * I + col0 + e % Dg]);
-  for (int e = tid; e < g.split * P * C; e += kThreads) accx[e] = accg[e] = 0.f;
+  for (int e = tid; e < g.splitx * P * C; e += kThreads) accx[e] = 0.f;
+  for (int e = tid; e < g.split * P * C; e += kThreads) accg[e] = 0.f;
   for (int e = tid; e < M * C; e += kThreads) cin[e] = 0.f;
   for (int e = tid; e < P; e += kThreads) cnt[e] = rsum[e] = 0.f;
+
+  if (kRemat) {  // ---- K2's phase A: the centers of the group's heads ----
+    __syncthreads();  // wfs staged
+    asy::mix::project_centers<T>([&](int n, int c) { return norm_in(tok(n) * C + c); },
+                                 wf_at, wv_at, bf + col0, bv + col0, C, Dg, D, hpc, M,
+                                 g.rh, g.rw, g.ph, g.pw, cin, crp, vcr, invr_c);
+    asy::mix::normalise_centers<T>(crp, invr_c, cnr, M, Dg, D, hpc);
+  }
 
   // ---- sweep 1: pooled tokens, counts, sim-weighted sums of xn and g ----
   for (int n0 = 0; n0 < N; n0 += kChunk) {
@@ -224,11 +285,16 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
     __syncthreads();
     load_chunk(n0, nt);
     __syncthreads();
-    for (int e = tid; e < M * C; e += kThreads) {
-      const int m = e / C, c = e % C;
-      float a = cin[e];
-      for (int t = 0; t < nt; ++t) a = fmaf(pw[t * M + m], xs[t * C + c], a);
-      cin[e] = a;
+    if (kRemat) {
+      assign_chunk(n0, nt, true);
+      __syncthreads();
+    } else {
+      for (int e = tid; e < M * C; e += kThreads) {
+        const int m = e / C, c = e % C;
+        float a = cin[e];
+        for (int t = 0; t < nt; ++t) a = fmaf(pw[t * M + m], xs[t * C + c], a);
+        cin[e] = a;
+      }
     }
     for (int e = tid; e < P; e += kThreads) {
       const int hl = e / M, m = e % M;
@@ -243,15 +309,21 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
       rsum[e] = s;
       cnt[e] = n;
     }
-    for (int e = tid; e < g.split * hpc * C; e += kThreads) {
+    // split s takes the chunk's tokens t = s mod splits (K6r: K2's order)
+    for (int e = tid; e < g.splitx * hpc * C; e += kThreads) {
       const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
       float* ax = accx + (size_t)(s * P + hl * M) * C + c;
+      for (int t = s; t < nt; t += g.splitx) {
+        const int q = t * hpc + hl, m = (int)ag[q];
+        ax[m * C] = fmaf(rnd<T>(sg[q]), xs[t * C + c], ax[m * C]);
+      }
+    }
+    for (int e = tid; e < g.split * hpc * C; e += kThreads) {
+      const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
       float* ay = accg + (size_t)(s * P + hl * M) * C + c;
       for (int t = s; t < nt; t += g.split) {
         const int q = t * hpc + hl, m = (int)ag[q];
-        const float v = rnd<T>(sg[q]);
-        ax[m * C] = fmaf(v, xs[t * C + c], ax[m * C]);
-        ay[m * C] = fmaf(v, gs[t * C + c], ay[m * C]);
+        ay[m * C] = fmaf(rnd<T>(sg[q]), gs[t * C + c], ay[m * C]);
       }
     }
   }
@@ -260,22 +332,31 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   // ---- per (head, proposal) algebra ----
   for (int e = tid; e < P * C; e += kThreads) {
     float a = 0.f, q = 0.f;
-    for (int s = 0; s < g.split; ++s) {
-      a += accx[(size_t)s * P * C + e];
-      q += accg[(size_t)s * P * C + e];
-    }
+    for (int s = 0; s < g.splitx; ++s) a += accx[(size_t)s * P * C + e];
+    for (int s = 0; s < g.split; ++s) q += accg[(size_t)s * P * C + e];
     aggx[e] = a;
     docw[e] = rnd<T>(q);
   }
   for (int e = tid; e < M * C; e += kThreads) cin[e] = rnd<T>(cin[e]);
   for (int e = tid; e < P; e += kThreads) icnt[e] = 1.f / (cnt[e] + 1.f);
-  for (int e = tid; e < P * D; e += kThreads) {
-    const int hm = e / D, d = e % D;
-    const size_t o = ((br * g.heads + h0 + hm / M) * M + hm % M) * D + d;
-    cn[e] = to_f<T>(crep[o]);
-    ocb[e] = to_f<T>(ocr[o]);
+  if (!kRemat) {
+    for (int e = tid; e < P * D; e += kThreads) {
+      const int hm = e / D, d = e % D;
+      const size_t o = ((br * g.heads + h0 + hm / M) * M + hm % M) * D + d;
+      cn[e] = to_f<T>(crep[o]);
+      ocb[e] = to_f<T>(ocr[o]);
+    }
   }
   __syncthreads();
+  if (kRemat) {  // K2's raw and mixed centers, in this kernel's [P][D] layout
+    for (int e = tid; e < P * D; e += kThreads) {
+      const int hm = e / D, hl = hm / M, m = hm % M, j = hl * D + e % D;
+      cn[e] = crp[m * Dg + j];
+      ocb[e] = asy::mix::mixed_center<T>(aggx + hm * C, [&](int c) { return wv_at(c, j); }, C,
+                                         rsum[hm], bv[col0 + j], vcr[m * Dg + j], cnt[hm]);
+    }
+    __syncthreads();
+  }
   for (int e = tid; e < P; e += kThreads) {
     float s = 0.f;
     for (int d = 0; d < D; ++d) s = fmaf(cn[e * D + d], cn[e * D + d], s);
@@ -351,11 +432,10 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
     __syncthreads();
     load_chunk(n0, nt);
     __syncthreads();
-    for (int e = tid; e < kChunk * Dg; e += kThreads) {  // feat
-      const int t = e / Dg, j = e % Dg;
-      float a = 0.f;
-      for (int c = 0; c < C; ++c) a = fmaf(xs[t * C + c], wf_at(c, j), a);
-      fs[t * DP + j] = a + bf[col0 + j];
+    if (kRemat) {
+      assign_chunk(n0, nt, false);
+    } else {
+      asy::mix::feat_chunk<T>(xs, C, wf_at, bf + col0, Dg, DP, fs);
     }
     __syncthreads();
     // per (token, head), kLanes lanes each.  kChunk*hpc items is a multiple
@@ -363,17 +443,12 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
     // iterations of the shuffles.
     for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
       const int t = it % kChunk, hl = it / kChunk, q = t * hpc + hl;
-      const float* f = fs + t * DP + hl * D;
-      float n2 = 0.f;
-      for (int d = sub; d < D; d += kLanes) n2 += rnd<T>(f[d] * f[d]);
+      const float n2 = asy::mix::head_norm2<T>(fs + t * DP + hl * D, D, sub);
       const int hm = hl * M + max(0, (int)ag[q]);
       float ds = 0.f;
       for (int c = sub; c < C; c += kLanes)
         ds = fmaf(ocw[hm * C + c], gs[t * C + c], fmaf(daggx[hm * C + c], xs[t * C + c], ds));
-      for (int o = kLanes / 2; o > 0; o >>= 1) {
-        n2 += __shfl_xor_sync(0xffffffffu, n2, o);
-        ds += __shfl_xor_sync(0xffffffffu, ds, o);
-      }
+      ds = asy::mix::lane_sum(ds);
       if (sub == 0) {
         float dr = 0.f, dn = 0.f;
         if (t < nt) {
@@ -384,7 +459,9 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
           sa = fmaf(sig, cb, sa);
           sb += sig;
           dr = rnd<T>(dcos * invr);
-          const float dinvr = dcos * (cb * (1.f / invr));
+          // the raw plane's cotangent: the remat's raw product (K6r), or
+          // cbest / invr on the winner (K6), exact since dcos is winner-masked
+          const float dinvr = dcos * (kRemat ? rawc[q] : cb * (1.f / invr));
           dn = rnd<T>(rnd<T>(dinvr) * (-0.5f) * inv * inv * inv);
         }
         drw[q] = dr;
@@ -585,31 +662,38 @@ mixer_bwd_epilogue(const T* __restrict__ x, const T* __restrict__ gout,
   }
 }
 
-template <typename T>
+inline Geo make_geo(int B, int H, int W, int C, int I, int heads, int fold_h, int fold_w,
+                    int ph, int pw, int G, bool remat) {
+  const int rh = H / fold_h, rw = W / fold_w, D = I / heads, hpc = heads / G;
+  const int split = std::min(8, std::max(1, kThreads / (hpc * C)));
+  return Geo{B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, rh * rw, ph, pw, ph * pw,
+             G, hpc, hpc * D, hpc * ph * pw, split, remat ? asy::mix::kSplit : split};
+}
+
+template <typename T, bool kRemat>
 int launch(const void* x, const void* gout, const float* stats, const void* wf,
            const float* bf, const void* wv, const float* bv, const void* w2,
            const float* ab, const void* cbest, const int8_t* argf, const void* crep,
            const void* oc, void* dxn, float* scratch, float* dcin, float* wpart,
-           float* dab, float* epart, int B, int H, int W, int C, int I, int heads,
-           int fold_h, int fold_w, int ph, int pw, int G, int tiles, void* stream) {
-  if (B <= 0 || C <= 0 || heads <= 0 || I % heads || fold_h <= 0 || fold_w <= 0 ||
-      H % fold_h || W % fold_w || ph <= 0 || pw <= 0 || G <= 0 || heads % G ||
-      tiles != (H * W + kTile - 1) / kTile)
+           float* dab, float* epart, int8_t* assign, int B, int H, int W, int C, int I,
+           int heads, int fold_h, int fold_w, int ph, int pw, int G, int tiles,
+           void* stream) {
+  if (B <= 0 || C <= 0 || C % 4 || heads <= 0 || I % heads || fold_h <= 0 || fold_w <= 0 ||
+      H % fold_h || W % fold_w || ph <= 0 || pw <= 0 || ph * pw > 127 || G <= 0 ||
+      heads % G || tiles != (H * W + kTile - 1) / kTile)
     return (int)cudaErrorInvalidValue;
-  const int rh = H / fold_h, rw = W / fold_w, D = I / heads, hpc = heads / G, M = ph * pw;
-  if (rh < ph || rw < pw) return (int)cudaErrorInvalidValue;
-  const int split = std::min(8, std::max(1, kThreads / (hpc * C)));
-  Geo g{B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, rh * rw, ph, pw, M,
-        G, hpc, hpc * D, hpc * M, split};
-  const Lay L = layout(g);
+  const Geo g = make_geo(B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, kRemat);
+  const int M = g.M;
+  if (g.rh < ph || g.rw < pw) return (int)cudaErrorInvalidValue;
+  const Lay L = layout(g, kRemat);
   const size_t bytes = L.floats * sizeof(float);
-  cudaError_t e = asy::set_smem(mixer_bwd_kernel<T>, bytes);
+  cudaError_t e = asy::set_smem(mixer_bwd_kernel<T, kRemat>, bytes);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = (cudaStream_t)stream;
-  mixer_bwd_kernel<T><<<dim3(fold_h * fold_w * G, B), kThreads, bytes, s>>>(
+  mixer_bwd_kernel<T, kRemat><<<dim3(fold_h * fold_w * G, B), kThreads, bytes, s>>>(
       (const T*)x, (const T*)gout, stats, (const T*)wf, bf, (const T*)wv, bv,
       (const T*)w2, ab, (const T*)cbest, argf, (const T*)crep, (const T*)oc, scratch,
-      dcin, wpart, dab, g, L);
+      dcin, wpart, dab, assign, g, L);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const size_t ebytes = sizeof(float) * ((size_t)std::max(kThreads, C) + (size_t)kTile * M) +
@@ -621,21 +705,63 @@ int launch(const void* x, const void* gout, const float* stats, const void* wf,
   return (int)cudaGetLastError();
 }
 
+// K6 with the residual pack (cbest, argf, crep, oc all given; assign null);
+// K6r without it (all four null), optionally writing the assignment it
+// rebuilt to `assign` (B, H, W, heads) int8
+template <typename T>
+int dispatch(const void* x, const void* gout, const float* stats, const void* wf,
+             const float* bf, const void* wv, const float* bv, const void* w2,
+             const float* ab, const void* cbest, const int8_t* argf, const void* crep,
+             const void* oc, void* dxn, float* scratch, float* dcin, float* wpart,
+             float* dab, float* epart, int8_t* assign, int B, int H, int W, int C, int I,
+             int heads, int fold_h, int fold_w, int ph, int pw, int G, int tiles,
+             void* stream) {
+  const int packed = (cbest != nullptr) + (argf != nullptr) + (crep != nullptr) +
+                     (oc != nullptr);
+  if (packed == 4 && assign == nullptr)
+    return launch<T, false>(x, gout, stats, wf, bf, wv, bv, w2, ab, cbest, argf, crep, oc,
+                            dxn, scratch, dcin, wpart, dab, epart, nullptr, B, H, W, C, I,
+                            heads, fold_h, fold_w, ph, pw, G, tiles, stream);
+  if (packed == 0)
+    return launch<T, true>(x, gout, stats, wf, bf, wv, bv, w2, ab, nullptr, nullptr,
+                           nullptr, nullptr, dxn, scratch, dcin, wpart, dab, epart, assign,
+                           B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, tiles, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
+
+// The number of head groups to launch with: the smallest divisor of heads,
+// at least `min_groups`, whose block fits in the card's shared memory (each
+// group owns heads / G heads' columns); -1 if none does.
+int mixer_block_bwd_groups(int C, int I, int heads, int ph, int pw, int min_groups,
+                           int remat) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess || C <= 0 || heads <= 0 || I % heads)
+    return -1;
+  for (int G = std::max(1, min_groups); G <= heads; ++G) {
+    if (heads % G) continue;
+    const Geo g = make_geo(1, 1, 1, C, I, heads, 1, 1, ph, pw, G, remat != 0);
+    if (layout(g, remat != 0).floats * sizeof(float) <= (size_t)optin) return G;
+  }
+  return -1;
+}
 
 int mixer_block_bwd_bf16(const void* x, const void* g, const float* stats,
                          const void* wf, const float* bf, const void* wv,
                          const float* bv, const void* w2, const float* ab,
                          const void* cbest, const int8_t* argf, const void* crep,
                          const void* oc, void* dxn, float* scratch, float* dcin,
-                         float* wpart, float* dab, float* epart, int B, int H, int W,
-                         int C, int I, int heads, int fold_h, int fold_w, int ph,
-                         int pw, int G, int tiles, void* stream) {
-  return launch<__nv_bfloat16>(x, g, stats, wf, bf, wv, bv, w2, ab, cbest, argf, crep,
-                               oc, dxn, scratch, dcin, wpart, dab, epart, B, H, W, C,
-                               I, heads, fold_h, fold_w, ph, pw, G, tiles, stream);
+                         float* wpart, float* dab, float* epart, int8_t* assign, int B,
+                         int H, int W, int C, int I, int heads, int fold_h, int fold_w,
+                         int ph, int pw, int G, int tiles, void* stream) {
+  return dispatch<__nv_bfloat16>(x, g, stats, wf, bf, wv, bv, w2, ab, cbest, argf, crep,
+                                 oc, dxn, scratch, dcin, wpart, dab, epart, assign, B, H, W,
+                                 C, I, heads, fold_h, fold_w, ph, pw, G, tiles, stream);
 }
 
 int mixer_block_bwd_f32(const void* x, const void* g, const float* stats,
@@ -643,12 +769,12 @@ int mixer_block_bwd_f32(const void* x, const void* g, const float* stats,
                         const float* bv, const void* w2, const float* ab,
                         const void* cbest, const int8_t* argf, const void* crep,
                         const void* oc, void* dxn, float* scratch, float* dcin,
-                        float* wpart, float* dab, float* epart, int B, int H, int W,
-                        int C, int I, int heads, int fold_h, int fold_w, int ph,
-                        int pw, int G, int tiles, void* stream) {
-  return launch<float>(x, g, stats, wf, bf, wv, bv, w2, ab, cbest, argf, crep, oc, dxn,
-                       scratch, dcin, wpart, dab, epart, B, H, W, C, I, heads, fold_h,
-                       fold_w, ph, pw, G, tiles, stream);
+                        float* wpart, float* dab, float* epart, int8_t* assign, int B,
+                        int H, int W, int C, int I, int heads, int fold_h, int fold_w,
+                        int ph, int pw, int G, int tiles, void* stream) {
+  return dispatch<float>(x, g, stats, wf, bf, wv, bv, w2, ab, cbest, argf, crep, oc, dxn,
+                         scratch, dcin, wpart, dab, epart, assign, B, H, W, C, I, heads,
+                         fold_h, fold_w, ph, pw, G, tiles, stream);
 }
 
 }  // extern "C"

@@ -26,6 +26,13 @@
 // output accumulators and the hidden slice in shared memory, with 4-token x
 // 4-channel register reuse (float4 shared loads).
 //
+// Train variant (template flag kZ1, ASY_MLP_BWD_RESIDUALS=1): the kernel also
+// writes the pre-GELU z1 = xn @ w1 + b1, rounded to the working type, as
+// (tokens, hid) rows, the residual the TPU kernel stores (_mlp_block_kernel's
+// res_ref) and the backward (mlp_block_bwd.cu) then reads instead of
+// recomputing fc1.  It adds tokens * hid * 2 bytes of writes (bf16); the
+// output is the same bits as without it.
+//
 // Numerics mirror the TPU kernel: the normalised input and the GELU output
 // are rounded to the working type (bf16) before each product, products
 // accumulate in f32, and the residual sum is rounded once.  GELU is the exact
@@ -45,12 +52,12 @@ __device__ __forceinline__ float gelu_erf(float z) {
 
 // Shared memory (floats): xs[kTokens][C] normalised input, ys[kTokens][C]
 // accumulators, w1s[C][kHidden], w2s[kHidden][C], hs[kTokens][kHidden].
-template <typename T>
+template <typename T, bool kZ1>
 __global__ void __launch_bounds__(kThreads)
 mlp_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                  const T* __restrict__ w1, const float* __restrict__ b1,
                  const T* __restrict__ w2, const float* __restrict__ b2,
-                 T* __restrict__ out, int ntok, int hw, int C, int hid) {
+                 T* __restrict__ out, T* __restrict__ z1, int ntok, int hw, int C, int hid) {
   extern __shared__ float4 smem4[];
   float* xs = reinterpret_cast<float*>(smem4);
   float* ys = xs + kTokens * C;
@@ -104,8 +111,12 @@ mlp_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       }
       const float bias = j < hc ? b1[j0 + j] : 0.f;
 #pragma unroll
-      for (int k = 0; k < 4; ++k)
-        hs[(tg + 8 * k) * kHidden + j] = j < hc ? asy::rnd<T>(gelu_erf(acc[k] + bias)) : 0.f;
+      for (int k = 0; k < 4; ++k) {
+        const int t = tg + 8 * k;
+        hs[t * kHidden + j] = j < hc ? asy::rnd<T>(gelu_erf(acc[k] + bias)) : 0.f;
+        if (kZ1 && j < hc && t < nt)
+          z1[(size_t)(t0 + t) * hid + j0 + j] = asy::from_f<T>(acc[k] + bias);
+      }
     }
     __syncthreads();
     // ys += hs @ w2s; thread (tg, c) owns tokens 4*tg .. 4*tg+3
@@ -137,19 +148,19 @@ mlp_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   }
 }
 
-template <typename T>
+template <typename T, bool kZ1>
 int launch(const void* x, const float* stats, const void* w1, const float* b1,
-           const void* w2, const float* b2, void* out, int B, int HW, int C,
+           const void* w2, const float* b2, void* out, void* z1, int B, int HW, int C,
            int hid, void* stream) {
   if (C % 4 || B <= 0 || HW <= 0 || hid <= 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * (size_t)(2 * kTokens * C + 2 * C * kHidden +
                                                kTokens * kHidden);
-  cudaError_t e = asy::set_smem(mlp_block_kernel<T>, smem);
+  cudaError_t e = asy::set_smem(mlp_block_kernel<T, kZ1>, smem);
   if (e != cudaSuccess) return (int)e;
   const int ntok = B * HW;
   const int grid = (ntok + kTokens - 1) / kTokens;
-  mlp_block_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      (const T*)x, stats, (const T*)w1, b1, (const T*)w2, b2, (T*)out, ntok, HW,
+  mlp_block_kernel<T, kZ1><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+      (const T*)x, stats, (const T*)w1, b1, (const T*)w2, b2, (T*)out, (T*)z1, ntok, HW,
       C, hid);
   return (int)cudaGetLastError();
 }
@@ -183,6 +194,7 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
 // (row g, k 2t..2t+1), (row g+8, same k), (row g, k+8), (row g+8, k+8);
 // B regs {0,1} hold (k 2t..2t+1, n g) and (k+8, n g); C/D hold (row g,
 // n 2t..2t+1) and (row g+8, same n).
+template <bool kZ1>
 __global__ void __launch_bounds__(kWarps * 32)
 mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ stats,
@@ -190,7 +202,7 @@ mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ b1,
                      const __nv_bfloat16* __restrict__ w2,
                      const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                     int ntok, int hw, int C, int hid) {
+                     __nv_bfloat16* __restrict__ z1, int ntok, int hw, int C, int hid) {
   extern __shared__ float4 smem4[];
   const int s1 = C + 8, s2 = kMmaHidden + 8;  // padded rows (bf16 elements)
   __nv_bfloat16* w1t = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kMmaHidden][s1]
@@ -270,6 +282,14 @@ mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
         const float c0 = j < hid ? b1[j] : 0.f, c1 = j + 1 < hid ? b1[j + 1] : 0.f;
         ha[ks][2 * h2] = pack_bf16(gelu_erf(z[nt][0] + c0), gelu_erf(z[nt][1] + c1));
         ha[ks][2 * h2 + 1] = pack_bf16(gelu_erf(z[nt][2] + c0), gelu_erf(z[nt][3] + c1));
+        if (kZ1 && j < hid) {  // hid % 8 == 0: j and j + 1 are both in range
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            if (rows[i] < ntok)
+              *reinterpret_cast<uint32_t*>(z1 + (size_t)rows[i] * hid + j) =
+                  pack_bf16(z[nt][2 * i] + c0, z[nt][2 * i + 1] + c1);
+          }
+        }
       }
     }
 #pragma unroll
@@ -303,18 +323,20 @@ mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
   }
 }
 
+template <bool kZ1>
 int launch_mma(const void* x, const float* stats, const void* w1, const float* b1,
-               const void* w2, const float* b2, void* out, int B, int HW, int C,
+               const void* w2, const float* b2, void* out, void* z1, int B, int HW, int C,
                int hid, void* stream) {
   const size_t smem = sizeof(__nv_bfloat16) *
                       (size_t)(kMmaHidden * (C + 8) + C * (kMmaHidden + 8));
-  cudaError_t e = asy::set_smem(mlp_block_mma_kernel, smem);
+  cudaError_t e = asy::set_smem(mlp_block_mma_kernel<kZ1>, smem);
   if (e != cudaSuccess) return (int)e;
   const int ntok = B * HW;
   const int grid = (ntok + kMmaTokens - 1) / kMmaTokens;
-  mlp_block_mma_kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+  mlp_block_mma_kernel<kZ1><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, stats, (const __nv_bfloat16*)w1, b1,
-      (const __nv_bfloat16*)w2, b2, (__nv_bfloat16*)out, ntok, HW, C, hid);
+      (const __nv_bfloat16*)w2, b2, (__nv_bfloat16*)out, (__nv_bfloat16*)z1, ntok, HW, C,
+      hid);
   return (int)cudaGetLastError();
 }
 
@@ -322,19 +344,28 @@ int launch_mma(const void* x, const float* stats, const void* w1, const float* b
 
 extern "C" {
 
+// z1 may be null (inference, or training without the z1 residual)
 int mlp_block_bf16(const void* x, const float* stats, const void* w1,
-                   const float* b1, const void* w2, const float* b2, void* out,
+                   const float* b1, const void* w2, const float* b2, void* out, void* z1,
                    int B, int HW, int C, int hid, void* stream) {
   const bool aligned = ((uintptr_t)w1 | (uintptr_t)w2) % 16 == 0;
   if (C % 16 == 0 && C <= kMaxC && hid % 8 == 0 && aligned && B > 0 && HW > 0)
-    return launch_mma(x, stats, w1, b1, w2, b2, out, B, HW, C, hid, stream);
-  return launch<__nv_bfloat16>(x, stats, w1, b1, w2, b2, out, B, HW, C, hid, stream);
+    return z1 != nullptr
+               ? launch_mma<true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream)
+               : launch_mma<false>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream);
+  return z1 != nullptr
+             ? launch<__nv_bfloat16, true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid,
+                                           stream)
+             : launch<__nv_bfloat16, false>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid,
+                                            stream);
 }
 
 int mlp_block_f32(const void* x, const float* stats, const void* w1,
-                  const float* b1, const void* w2, const float* b2, void* out,
+                  const float* b1, const void* w2, const float* b2, void* out, void* z1,
                   int B, int HW, int C, int hid, void* stream) {
-  return launch<float>(x, stats, w1, b1, w2, b2, out, B, HW, C, hid, stream);
+  return z1 != nullptr
+             ? launch<float, true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream)
+             : launch<float, false>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream);
 }
 
 }  // extern "C"

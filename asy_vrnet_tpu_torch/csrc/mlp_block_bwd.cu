@@ -6,10 +6,14 @@
 // it is rounded, which the GroupNorm input gradient needs.
 //
 // Replaces the TPU kernel asy_vrnet_tpu/ops/block_pallas.py::_mlp_bwd_pallas
-// (kernel _mlp_bwd_kernel, fc1 rematerialised; the optional z1 residual is
-// not ported), reached through the custom VJP of fused_mlp_block_pre.  GN
-// affine and LayerScale are folded into the weights by the caller, which
-// also unfolds the weight gradients.
+// (kernel _mlp_bwd_kernel), reached through the custom VJP of
+// fused_mlp_block_pre.  GN affine and LayerScale are folded into the weights
+// by the caller, which also unfolds the weight gradients.  Both paths below
+// have a variant (template flag kZ1, ASY_MLP_BWD_RESIDUALS=1) that loads the
+// forward's stored z1 (mlp_block.cu, rounded to the working type, bias
+// included) instead of forming it with the fc1 product, as the TPU kernel
+// does with its z_ref; GELU and GELU' then take the stored value.  The other
+// four products stay.
 //
 // What bounds it on the H100: 8*C*hid flops per token (four products of
 // the forward's size) against 6*C bytes of bf16 traffic (x and g in, dxn
@@ -84,13 +88,14 @@ inline Lay layout(int TT, int C) {
   return L;
 }
 
-template <typename T>
+template <typename T, bool kZ1>
 __global__ void __launch_bounds__(kThreads)
 mlp_block_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
                      const float* __restrict__ stats, const T* __restrict__ w1,
                      const float* __restrict__ b1, const T* __restrict__ w2,
-                     T* __restrict__ dxn, float* __restrict__ part, int HW, int C,
-                     int hid, int chunks, int TT, Lay L) {
+                     const T* __restrict__ z1, T* __restrict__ dxn,
+                     float* __restrict__ part, int HW, int C, int hid, int chunks, int TT,
+                     Lay L) {
   using asy::rnd;
   using asy::to_f;
   extern __shared__ float4 smem4[];
@@ -142,7 +147,8 @@ mlp_block_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
         gs[e] = ok ? to_f<T>(gout[o]) : 0.f;
       }
       __syncthreads();
-      // z1 and dh = g @ w2^T of the slice; thread (tg, j) owns tokens tg + 8q
+      // z1 (kZ1: loaded) and dh = g @ w2^T of the slice; thread (tg, j) owns
+      // tokens tg + 8q
       {
         const int j = tid % kHid, tg = tid / kHid;
         float z[4] = {0.f, 0.f, 0.f, 0.f}, dh[4] = {0.f, 0.f, 0.f, 0.f};
@@ -151,7 +157,7 @@ mlp_block_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int t = tg + kGroups * q;
-            z[q] = fmaf(xs[t * C + c], wa, z[q]);
+            if (!kZ1) z[q] = fmaf(xs[t * C + c], wa, z[q]);
             dh[q] = fmaf(gs[t * C + c], wb, dh[q]);
           }
         }
@@ -161,7 +167,11 @@ mlp_block_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
         for (int q = 0; q < 4; ++q) {
           const int t = tg + kGroups * q;
           float act = 0.f, grad = 0.f;
-          if (j < hc && t < ns) gelu_and_grad(z[q] + bias, act, grad);
+          if (j < hc && t < ns) {
+            const float zq = kZ1 ? to_f<T>(z1[((size_t)b * HW + n0 + s0 + t) * hid + j0 + j])
+                                 : z[q] + bias;
+            gelu_and_grad(zq, act, grad);
+          }
           const float d = dh[q] * grad;
           dz[t * kWP + j] = rnd<T>(d);
           hs[t * kWP + j] = rnd<T>(act);
@@ -257,20 +267,20 @@ mlp_block_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   }
 }
 
-template <typename T>
+template <typename T, bool kZ1>
 int launch(const void* x, const void* g, const float* stats, const void* w1,
-           const float* b1, const void* w2, void* dxn, float* part, int B, int HW,
-           int C, int hid, int chunks, void* stream) {
+           const float* b1, const void* w2, const void* z1, void* dxn, float* part, int B,
+           int HW, int C, int hid, int chunks, void* stream) {
   if (B <= 0 || HW <= 0 || C <= 0 || hid <= 0 || chunks <= 0 || chunks > HW)
     return (int)cudaErrorInvalidValue;
   const int TT = (HW + chunks - 1) / chunks;
   const Lay L = layout(TT, C);
   const size_t bytes = L.floats * sizeof(float);
-  cudaError_t e = asy::set_smem(mlp_block_bwd_kernel<T>, bytes);
+  cudaError_t e = asy::set_smem(mlp_block_bwd_kernel<T, kZ1>, bytes);
   if (e != cudaSuccess) return (int)e;
-  mlp_block_bwd_kernel<T><<<B * chunks, kThreads, bytes, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)g, stats, (const T*)w1, b1, (const T*)w2, (T*)dxn, part,
-      HW, C, hid, chunks, TT, L);
+  mlp_block_bwd_kernel<T, kZ1><<<B * chunks, kThreads, bytes, (cudaStream_t)stream>>>(
+      (const T*)x, (const T*)g, stats, (const T*)w1, b1, (const T*)w2, (const T*)z1,
+      (T*)dxn, part, HW, C, hid, chunks, TT, L);
   return (int)cudaGetLastError();
 }
 
@@ -316,12 +326,13 @@ inline size_t mma_smem_bytes(int C) {
          sizeof(float) * ((size_t)kTTok * C + kTWarps * kTHid + 2 * kTWarps);
 }
 
+template <bool kZ1>
 __global__ void __launch_bounds__(kTWarps * 32)
 mlp_block_bwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ gout,
                          const float* __restrict__ stats, const bf16* __restrict__ w1,
                          const float* __restrict__ b1, const bf16* __restrict__ w2,
-                         bf16* __restrict__ dxn, float* __restrict__ part, int HW, int C,
-                         int hid, int chunks) {
+                         const bf16* __restrict__ z1, bf16* __restrict__ dxn,
+                         float* __restrict__ part, int HW, int C, int hid, int chunks) {
   extern __shared__ float4 smem4[];
   const int sc = C + 8, sh = kTHid + 8;
   bf16* xT = reinterpret_cast<bf16*>(smem4);  // [C][kTS] rounded xn, transposed
@@ -370,7 +381,7 @@ mlp_block_bwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go
     }
     __syncthreads();
 
-    // z1 = xn @ w1 and dh = g @ w2^T for the warp's 16 tokens
+    // z1 = xn @ w1 (kZ1: loaded below) and dh = g @ w2^T for the warp's 16 tokens
     float z[4][4] = {}, dh[4][4] = {};
     const size_t ra = (tok0 + r0 + g) * C, rb = ra + 8 * (size_t)C;
     for (int kk = 0; kk < C / 16; ++kk) {
@@ -381,10 +392,24 @@ mlp_block_bwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go
                               ld32(gout + rb + c + 8)};
 #pragma unroll
       for (int nt = 0; nt < kTHid / 8; ++nt) {
-        const bf16* bp = w1t + (nt * 8 + g) * sc + c;
-        mma16816(z[nt], xa, ld32(bp), ld32(bp + 8));
+        if (!kZ1) {
+          const bf16* bp = w1t + (nt * 8 + g) * sc + c;
+          mma16816(z[nt], xa, ld32(bp), ld32(bp + 8));
+        }
         const bf16* bq = w2r + (nt * 8 + g) * sc + c;
         mma16816(dh[nt], ga, ld32(bq), ld32(bq + 8));
+      }
+    }
+    if (kZ1) {  // the stored z1 (bias included) in the accumulator layout
+#pragma unroll
+      for (int nt = 0; nt < kTHid / 8; ++nt) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(
+              z1 + (tok0 + r0 + g + 8 * h) * hid + j0 + nt * 8 + 2 * t);
+          z[nt][2 * h] = __bfloat162float(v.x);
+          z[nt][2 * h + 1] = __bfloat162float(v.y);
+        }
       }
     }
     // dz1 = dh * GELU'(z1 + b1): A-fragments for dxn, dz1^T and GELU^T to
@@ -397,7 +422,7 @@ mlp_block_bwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ go
       for (int i = 0; i < 4; ++i) {  // (row g | g+8) x (col 2t | 2t+1)
         const int j = nt * 8 + 2 * t + (i & 1);
         float grad;
-        gelu_and_grad(z[nt][i] + b1[j0 + j], a[i], grad);
+        gelu_and_grad(kZ1 ? z[nt][i] : z[nt][i] + b1[j0 + j], a[i], grad);
         d[i] = dh[nt][i] * grad;
         const int tt = r0 + g + (i >> 1) * 8;
         dzT[j * kTS + tt] = __float2bfloat16_rn(d[i]);
@@ -519,39 +544,57 @@ bool mma_path(int HW, int C, int hid) {
   return C % 16 == 0 && C <= kMaxC && hid % kTHid == 0 && HW % kTTok == 0;
 }
 
+template <bool kZ1>
 int launch_mma(const void* x, const void* g, const float* stats, const void* w1,
-               const float* b1, const void* w2, void* dxn, float* part, int B, int HW,
-               int C, int hid, int chunks, void* stream) {
+               const float* b1, const void* w2, const void* z1, void* dxn, float* part,
+               int B, int HW, int C, int hid, int chunks, void* stream) {
   if (B <= 0 || chunks != HW / kTTok) return (int)cudaErrorInvalidValue;
   const size_t bytes = mma_smem_bytes(C);
-  cudaError_t e = asy::set_smem(mlp_block_bwd_mma_kernel, bytes);
+  cudaError_t e = asy::set_smem(mlp_block_bwd_mma_kernel<kZ1>, bytes);
   if (e != cudaSuccess) return (int)e;
-  mlp_block_bwd_mma_kernel<<<B * chunks, kTWarps * 32, bytes, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)g, stats, (const bf16*)w1, b1, (const bf16*)w2, (bf16*)dxn,
-      part, HW, C, hid, chunks);
+  mlp_block_bwd_mma_kernel<kZ1><<<B * chunks, kTWarps * 32, bytes, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)g, stats, (const bf16*)w1, b1, (const bf16*)w2,
+      (const bf16*)z1, (bf16*)dxn, part, HW, C, hid, chunks);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_fma(const void* x, const void* g, const float* stats, const void* w1,
+               const float* b1, const void* w2, const void* z1, void* dxn, float* part,
+               int B, int HW, int C, int hid, int chunks, void* stream) {
+  return z1 != nullptr
+             ? launch<T, true>(x, g, stats, w1, b1, w2, z1, dxn, part, B, HW, C, hid, chunks,
+                               stream)
+             : launch<T, false>(x, g, stats, w1, b1, w2, z1, dxn, part, B, HW, C, hid, chunks,
+                                stream);
 }
 
 }  // namespace
 
 extern "C" {
 
+// z1 (B*HW, hid) in the working type: the forward's stored pre-GELU
+// activations, or null (fc1 recomputed)
 int mlp_block_bwd_bf16(const void* x, const void* g, const float* stats,
-                       const void* w1, const float* b1, const void* w2, void* dxn,
-                       float* part, int B, int HW, int C, int hid, int chunks,
+                       const void* w1, const float* b1, const void* w2, const void* z1,
+                       void* dxn, float* part, int B, int HW, int C, int hid, int chunks,
                        void* stream) {
   if (mma_path(HW, C, hid))
-    return launch_mma(x, g, stats, w1, b1, w2, dxn, part, B, HW, C, hid, chunks, stream);
-  return launch<__nv_bfloat16>(x, g, stats, w1, b1, w2, dxn, part, B, HW, C, hid,
-                               chunks, stream);
+    return z1 != nullptr
+               ? launch_mma<true>(x, g, stats, w1, b1, w2, z1, dxn, part, B, HW, C, hid,
+                                  chunks, stream)
+               : launch_mma<false>(x, g, stats, w1, b1, w2, z1, dxn, part, B, HW, C, hid,
+                                   chunks, stream);
+  return launch_fma<__nv_bfloat16>(x, g, stats, w1, b1, w2, z1, dxn, part, B, HW, C, hid,
+                                   chunks, stream);
 }
 
 int mlp_block_bwd_f32(const void* x, const void* g, const float* stats,
-                      const void* w1, const float* b1, const void* w2, void* dxn,
-                      float* part, int B, int HW, int C, int hid, int chunks,
+                      const void* w1, const float* b1, const void* w2, const void* z1,
+                      void* dxn, float* part, int B, int HW, int C, int hid, int chunks,
                       void* stream) {
-  return launch<float>(x, g, stats, w1, b1, w2, dxn, part, B, HW, C, hid, chunks,
-                       stream);
+  return launch_fma<float>(x, g, stats, w1, b1, w2, z1, dxn, part, B, HW, C, hid, chunks,
+                           stream);
 }
 
 }  // extern "C"

@@ -11,7 +11,8 @@ copies.  Parameters are f32; `ModelConfig.compute_dtype` sets the activation
 dtype.  `model.train()` switches BatchNorm to batch statistics (and dropout
 on, where a variant has any); with `use_pallas_cluster` the eligible
 ClusterBlocks train through the fused kernels (K2/K1 forward, K6/K5
-backward).
+backward; K6r and the z1 variants under the two switches of `ops/block.py`),
+and `train_remat` rematerialises the backbone's spans (`models/remat.py`).
 """
 from __future__ import annotations
 
@@ -37,7 +38,7 @@ class EfficientVRNet(nn.Module):
         self.backbone = CoCFpnDual(
             cfg.coc, cfg.num_seg_classes, cfg.width, cfg.image_channels,
             cfg.radar_channels, fused=cfg.use_pallas_cluster,
-            seg_signed_logits=cfg.seg_signed_logits,
+            seg_signed_logits=cfg.seg_signed_logits, remat=cfg.train_remat,
         )
         self.head = DecoupleHead(cfg.num_classes, (c3, c4, c5), cfg.width,
                                  hidden=cfg.head_width)

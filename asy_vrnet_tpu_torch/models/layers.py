@@ -12,6 +12,7 @@ forms are TPU re-layouts.
 from __future__ import annotations
 
 import math
+import threading
 from typing import Callable
 
 import torch
@@ -68,9 +69,20 @@ def bn_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     return x * mul.to(x.dtype).view(shape) + add.to(x.dtype).view(shape)
 
 
+class _RunningStats(threading.local):
+    """`frozen` while a rematerialised span recomputes its forward in this
+    thread (models/remat.py): the span's forward updated the running stats
+    already, and flax discards the batch_stats of nn.remat's recompute."""
+    frozen = False
+
+
+RUNNING_STATS = _RunningStats()
+
+
 def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Training BatchNorm: normalise with the batch statistics (gradients flow
-    through them) and update the running ones in place.
+    through them) and update the running ones in place (not during a remat
+    span's recompute).
 
     parity: flax keeps the *biased* batch variance in the running stats
     (`torch.nn.functional.batch_norm` would store the unbiased one), so the
@@ -84,10 +96,11 @@ def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     shape = (1, -1, 1, 1)
     if x.dtype == torch.float32:
         var = var.clamp_min(0.0)
-    with torch.no_grad():
-        m = bn.momentum
-        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
-        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    if not RUNNING_STATS.frozen:
+        with torch.no_grad():
+            m = bn.momentum
+            bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
     mul = bn.weight * torch.rsqrt(var + bn.eps)
     if x.dtype == torch.float32:
         return (x - mean.view(shape)) * mul.view(shape) + bn.bias.view(shape)

@@ -103,10 +103,11 @@ class CoCFpnDual(nn.Module):
     def __init__(self, variant: CoCVariant, num_seg_classes: int = 9,
                  width: float = 1.0, image_channels: int = 3,
                  radar_channels: int = 4, fused: bool = True,
-                 seg_signed_logits: bool = False):
+                 seg_signed_logits: bool = False, remat: str = "none"):
         super().__init__()
         c2, c3, c4, c5 = variant.scaled_dims(width)
-        self.backbone = VRCoC(variant, width, image_channels, radar_channels, fused)
+        # remat reaches the backbone only, as in the JAX package (neck.py:160-166)
+        self.backbone = VRCoC(variant, width, image_channels, radar_channels, fused, remat)
         self.aspp = ASPP(c5, c5)
         self.upsample5_4 = CoCUpsample(c5, c4)
         self.sc_attn_seg4 = ShuffleAttention(2 * c4, groups=8)

@@ -2,7 +2,11 @@
 `asy_vrnet_tpu/models/vr_coc.py`; reference backbone/fusion/vr_coc.py:303-704).
 
 Only the literal entry is ported (`vr_coc.py:523-555`): the space-to-depth
-pre-stem and lane folding are exact TPU re-layouts.  Parity quirks kept:
+pre-stem and lane folding are exact TPU re-layouts.  `remat` is
+`ModelConfig.train_remat`: in training with autograd on, "fusion"
+rematerialises every ImageEnhanceByRadar / RadarEnhanceByImage (the initial
+pair included), "blocks" also each backbone ClusterBlock, "stages" instead
+each stage's ClusterBlock stack (`models/remat.py`).  Parity quirks kept:
   - the radar positional-embedding concat reuses the image grid (`fea_pos`);
   - the stage-3 tap is computed but discarded;
   - taps are [after stage-1 fusion, after reducer-1, after reducer-2, after
@@ -12,11 +16,14 @@ Module names follow the reference's torch state_dict (`network.{3s}` stage,
 """
 from __future__ import annotations
 
+from functools import partial
+
 import numpy as np
 import torch
 import torch.nn as nn
 
 from asy_vrnet_tpu_torch.config import CoCVariant
+from asy_vrnet_tpu_torch.models import remat as rm
 from asy_vrnet_tpu_torch.models.cluster_block import ClusterBlock
 from asy_vrnet_tpu_torch.models.layers import (
     BatchNorm2d,
@@ -114,9 +121,10 @@ class VRCoC(nn.Module):
 
     def __init__(self, variant: CoCVariant, width: float = 1.0,
                  image_channels: int = 3, radar_channels: int = 4,
-                 fused: bool = True):
+                 fused: bool = True, remat: str = "none"):
         super().__init__()
         v = self.variant = variant
+        self.remat = remat
         dims = v.scaled_dims(width)
         if not v.use_layer_scale:
             raise NotImplementedError("variants without LayerScale are not ported")
@@ -144,10 +152,26 @@ class VRCoC(nn.Module):
         self.network_radar = nn.ModuleList(net_r)
 
     def forward(self, image: torch.Tensor, radar: torch.Tensor):
+        spans = (rm.spans_of(self.remat) if self.training and torch.is_grad_enabled()
+                 else ())
+
+        def fusion(mod, image, radar):
+            return (rm.span(mod, [mod], image, radar) if "fusion" in spans
+                    else mod(image, radar))
+
+        def stage(seq, x):
+            if "stages" in spans:
+                return rm.span(partial(rm.stack, list(seq)), [seq], x)
+            if "blocks" in spans:
+                for blk in seq:
+                    x = rm.span(partial(rm.stack, [blk]), [blk], x)
+                return x
+            return seq(x)
+
         image = self.image_initial(image)
         radar = self.radar_initial(radar)
-        image = self.image_enhance_by_radar1(image, radar)
-        radar = self.radar_enhance_by_image1(image, radar)
+        image = fusion(self.image_enhance_by_radar1, image, radar)
+        radar = fusion(self.radar_enhance_by_image1, image, radar)
 
         b, _, h, w = image.shape
         pos = torch.as_tensor(positional_grid(h, w), dtype=image.dtype,
@@ -165,11 +189,11 @@ class VRCoC(nn.Module):
         n = len(self.variant.layers)
         k = 0
         for i in range(n):
-            image = net[k](image)
-            radar = net_r[k](radar)
+            image = stage(net[k], image)
+            radar = stage(net_r[k], radar)
             # fusion: image first, radar uses the already-enhanced image
-            image = net[k + 1](image, radar)
-            radar = net_r[k + 1](image, radar)
+            image = fusion(net[k + 1], image, radar)
+            radar = fusion(net_r[k + 1], image, radar)
             k += 2
             if i == 0 or i == n - 1:
                 outs.append(image)          # stride-4 / stride-32 taps

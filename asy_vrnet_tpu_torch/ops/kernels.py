@@ -1,7 +1,8 @@
 """Build, load and launch the CUDA kernels in `asy_vrnet_tpu_torch/csrc/`.
 
 Nine sources: the two fused ClusterBlock halves (mixer_block, mlp_block) and
-their backward passes (mixer_block_bwd, mlp_block_bwd), the stand-alone
+their backward passes (mixer_block_bwd, with both bodies K6 and K6r;
+mlp_block_bwd), K1 and K5 with their z1 variants, the stand-alone
 cluster mix and its backward (cluster_mix, cluster_mix_bwd), the fused
 seg-loss forward and backward (seg_loss_sums, seg_loss_dlogits) and SimOTA
 (simota_assign).  Each source is compiled by nvcc into a shared
@@ -33,7 +34,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("mixer_block", "mlp_block", "mixer_block_bwd", "mlp_block_bwd",
            "cluster_mix", "cluster_mix_bwd", "seg_loss_sums", "seg_loss_dlogits",
            "simota_assign")
-HEADERS = ("common.cuh", "cluster_mix.cuh", "seg_loss.cuh")
+HEADERS = ("common.cuh", "mixer_block.cuh", "cluster_mix.cuh", "seg_loss.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 # SimOTA's results hang on exact ties between costs, so its source is built
@@ -49,9 +50,9 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
     "mixer_block": [_P] * 15 + [_I] * 11 + [_P],
-    "mlp_block": [_P] * 7 + [_I] * 4 + [_P],
-    "mixer_block_bwd": [_P] * 19 + [_I] * 12 + [_P],
-    "mlp_block_bwd": [_P] * 8 + [_I] * 5 + [_P],
+    "mlp_block": [_P] * 8 + [_I] * 4 + [_P],
+    "mixer_block_bwd": [_P] * 20 + [_I] * 12 + [_P],
+    "mlp_block_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "cluster_mix": [_P] * 5 + [_I] * 9 + [_P],
     "cluster_mix_bwd": [_P] * 8 + [_I] * 9 + [_P],
     "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
@@ -60,6 +61,8 @@ _SIGS = {
 }
 # element types each source is instantiated for (entry = "<source>_<suffix>")
 _SUFFIXES = {"simota_assign": ("f32",)}
+# further entries of a library: name -> (argument types, result type)
+_EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 7, _I)}}
 
 
 def _nvcc() -> str:
@@ -128,6 +131,9 @@ def load(name: str) -> ctypes.CDLL:
                 fn = getattr(lib, f"{name}_{suffix}")
                 fn.argtypes = _SIGS[name]
                 fn.restype = _I
+            for entry, (args, res) in _EXTRA.get(name, {}).items():
+                getattr(lib, entry).argtypes = args
+                getattr(lib, entry).restype = res
             lib.asy_cuda_error_string.argtypes = [_I]
             lib.asy_cuda_error_string.restype = ctypes.c_char_p
             _LIBS[name] = lib
@@ -197,38 +203,58 @@ def mlp_bwd_chunks(hw: int, c: int, hid: int, dtype: torch.dtype) -> int:
     return -(-hw // tt)
 
 
+def mixer_bwd_groups(c: int, inner: int, heads: int, regions: int, proposal_h: int,
+                     proposal_w: int, remat: bool, device: torch.device) -> int:
+    """Head groups per region of the mixer backward (K6, or K6r with
+    `remat`): each keeps an f32 dxn plane, so it fills only half the SMs
+    (`mixer_cluster_size`) before it splits a region further; more groups
+    where a block would not fit in shared memory.  Raises if none fits."""
+    least = mixer_cluster_size(heads, regions, device, fill=0.5)
+    with torch.cuda.device(device):
+        g = load("mixer_block_bwd").mixer_block_bwd_groups(
+            c, inner, heads, proposal_h, proposal_w, least, int(remat))
+    if g < 1:
+        raise RuntimeError(f"mixer_block_bwd: no head grouping of C={c}, I={inner}, "
+                           f"heads={heads} fits in shared memory")
+    return g
+
+
 def mixer_bwd_tiles(hw: int) -> int:
     """Epilogue blocks per sample of the mixer backward."""
     return -(-hw // _MIXER_BWD_TILE)
 
 
-def mlp_block_bwd(x, g, stats, w1, b1, w2, dxn, part, chunks) -> None:
-    """Launch the MLP-half backward kernel; tensors are checked by the caller.
-    `part` is (B * chunks, 2*C*hid + hid + C + 2) f32."""
+def mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, chunks) -> None:
+    """Launch the MLP-half backward kernel (reading z1 unless it is None);
+    tensors are checked by the caller.  `part` is (B * chunks, 2*C*hid + hid
+    + C + 2) f32."""
     b, h, w, c = x.shape
     _call("mlp_block_bwd", x, _ptr(x), _ptr(g), _ptr(stats), _ptr(w1), _ptr(b1),
-          _ptr(w2), _ptr(dxn), _ptr(part), b, h * w, c, w1.shape[1], chunks)
+          _ptr(w2), _ptr(z1), _ptr(dxn), _ptr(part), b, h * w, c, w1.shape[1], chunks)
 
 
 def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, pack, dxn, scratch,
-                    dcin, wpart, dab, epart, *, groups, tiles, heads, fold_h, fold_w,
-                    proposal_h, proposal_w) -> None:
+                    dcin, wpart, dab, epart, assign, *, groups, tiles, heads, fold_h,
+                    fold_w, proposal_h, proposal_w) -> None:
     """Launch the two mixer-half backward kernels (per region and head group,
-    then the dxn epilogue); tensors are checked by the caller."""
+    then the dxn epilogue): K6 with the residual `pack`, K6r with None (then
+    `assign`, if not None, receives the assignment K6r rebuilt); tensors are
+    checked by the caller."""
     b, h, w, c = x.shape
-    cbest, argf, crep, oc = pack
+    cbest, argf, crep, oc = pack if pack is not None else (None,) * 4
     _call("mixer_block_bwd", x, _ptr(x), _ptr(g), _ptr(stats), _ptr(wf), _ptr(bf),
           _ptr(wv), _ptr(bv), _ptr(w2), _ptr(alpha_beta), _ptr(cbest), _ptr(argf),
           _ptr(crep), _ptr(oc), _ptr(dxn), _ptr(scratch), _ptr(dcin), _ptr(wpart),
-          _ptr(dab), _ptr(epart), b, h, w, c, wf.shape[1], heads, fold_h, fold_w,
-          proposal_h, proposal_w, groups, tiles)
+          _ptr(dab), _ptr(epart), _ptr(assign), b, h, w, c, wf.shape[1], heads, fold_h,
+          fold_w, proposal_h, proposal_w, groups, tiles)
 
 
-def mlp_block(x, stats, w1, b1, w2, b2, out) -> None:
-    """Launch the MLP-half kernel; tensors are checked by the caller."""
+def mlp_block(x, stats, w1, b1, w2, b2, out, z1) -> None:
+    """Launch the MLP-half kernel (also writing z1 unless it is None);
+    tensors are checked by the caller."""
     b, h, w, c = x.shape
     _call("mlp_block", x, _ptr(x), _ptr(stats), _ptr(w1), _ptr(b1), _ptr(w2),
-          _ptr(b2), _ptr(out), b, h * w, c, w1.shape[1])
+          _ptr(b2), _ptr(out), _ptr(z1), b, h * w, c, w1.shape[1])
 
 
 def cluster_mix(feat, value, alpha_beta, out, assign, *, heads, fold_h, fold_w,

@@ -33,6 +33,13 @@ Phases (each raises on failure; nothing is caught):
      twin's, the MLP-half backward kernel (K5) against its twin, and the
      mixer-half backward kernel (K6) against its twin with both fed the
      kernel's pack; two runs of each give equal bits; times and bounds;
+ 7b. kernels of the memory settings, at the same shapes, batch 16, f32 and
+     bf16: K6r (the full-remat mixer backward, ASY_MIXER_BWD_RESIDUALS=0)
+     against its twin fed K6r's own assignment, which must equal the one K2
+     stored in its pack bit for bit, and against K6 fed that pack (the same
+     function); K1 with z1 (ASY_MLP_BWD_RESIDUALS=1: the same output bits as
+     K1, z1 against the twin's) and K5 reading it against its twin fed the
+     same z1; two runs of each give equal bits; times and bounds;
   8. kernels, stand-alone cluster mix: K7 (cluster_mix) and K7b
      (cluster_mix_bwd) against their twins at the four shapes the
      stochastic-depth step gives them, batch 16, f32 and bf16:
@@ -64,10 +71,20 @@ Phases (each raises on failure; nothing is caught):
      simota_assign >= 1; the first step through the twins from the same
      start and generator seed; then an eval forward of that model launches
      K2 and K1 27 times and K7 0 times (JAX's gate);
- 12. a 30-step overfit of one 128^2 batch in f32 through the fused path;
-     step time, images/s, peak memory, device-busy share, launches per step
-     and device ms by category for the fused, the module-path and the
-     stochastic-depth step.
+ 12. the JAX package's memory settings, from the same start and batches:
+     the lean step (train_remat "blocks" with ASY_MIXER_BWD_RESIDUALS=0, 5
+     steps; per step K6r 27, K6 0, K2 51 (24 recomputed), K1, K5 27), the z1
+     step (ASY_MLP_BWD_RESIDUALS=1, 5 steps; K1 and K5 take their z1
+     variants on all 27 blocks), "fusion" and "stages" (2 steps each; under
+     "stages" K2 51 and K1 43 launches: a recomputed stack reruns all but its
+     last MLP half), the same checks and the first step through the twins;
+     each first step equals the fused step's (loss to 1e-5 relative, num_fg
+     equal: the same forward);
+ 13. a 30-step overfit of one 128^2 batch in f32 through the fused path;
+     step time, images/s, peak memory (absolute, and above what was held
+     before the first step), device-busy share, launches per step and device
+     ms by category for the fused, the module-path, the stochastic-depth and
+     the memory-setting steps.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -92,6 +109,11 @@ Tolerances:
     GT; otherwise fg agreement >= 99.9% of anchors, matched GT equal where
     both are fg, IoU atol 1e-5, num_fg within 1% (libm's last ulp can flip a
     near-tie).
+  K6r vs its twin (fed K6r's assignment), K5 with z1 vs its twin (fed the
+    same z1): as the block backward below; K6r vs K6 fed K2's pack: 1e-4 *
+    max(1, max |K6|) in f32, reported in bf16 (the pack rounds the winning
+    cosine and the centers to bf16, the remat does not); K1's z1: 1e-5 *
+    max(1, max |z1|) in f32, 2 bf16 ulps of max |z1| in bf16.
   block backward vs plain twins (the same residual pack fed to both), f32:
     every output within 1e-4 * max(1, max |ref|); the pack's fields within
     1e-4 * max(1, max |ref|) and its assignment 100% equal.  bf16: dxn
@@ -121,11 +143,14 @@ and 67 TFLOP/s (f32 on CUDA cores; NVIDIA's H100 SXM data sheet) for the
 seg-loss, SimOTA and cluster-mix kernels, which have no matrix product.  The
 backward bounds count the products the math needs: K5 8*C*hid flops per
 token (g @ w2^T, dz1 @ w1^T, both weight gradients; z1's recompute is not
-counted), K6 6*C*I per token (feat, d feat @ wf^T, dWf) plus the per
-(token, head) winner terms; K7 and K7b count their code's arithmetic
+counted; the z1 variants add the z1 plane's bytes), K6 6*C*I per token
+(feat, d feat @ wf^T, dWf) plus the per (token, head) winner terms, K6r
+those plus the forward remat's 2*C*I + 2*I*(M+1) and no pack;
+K7 and K7b count their code's arithmetic
 (`cluster_mix_bounds`) and 3 (K7) or 5 (K7b) tensors of B*H*W*I bf16 values.
-No single PyTorch call computes any of the nine kernels: library_ms is null.
+No single PyTorch call computes any of the twelve kernels: library_ms is null.
 """
+import contextlib
 import copy
 import dataclasses
 import json
@@ -168,6 +193,15 @@ TRAIN_KERNELS = {
                              replaces="asy_vrnet_tpu/ops/losses_seg_pallas.py:204"),
     "simota_assign": dict(source="asy_vrnet_tpu_torch/csrc/simota_assign.cu",
                           replaces="asy_vrnet_tpu/ops/simota_pallas.py:154"),
+}
+# K6r and the z1 variants of K1 and K5 (the lean and the z1 train steps)
+REMAT_KERNELS = {
+    "mixer_block_bwd_remat": dict(source="asy_vrnet_tpu_torch/csrc/mixer_block_bwd.cu",
+                                  replaces="asy_vrnet_tpu/ops/block_pallas.py:1245"),
+    "mlp_block_z1": dict(source="asy_vrnet_tpu_torch/csrc/mlp_block.cu",
+                         replaces="asy_vrnet_tpu/ops/block_pallas.py:2022"),
+    "mlp_block_bwd_z1": dict(source="asy_vrnet_tpu_torch/csrc/mlp_block_bwd.cu",
+                             replaces="asy_vrnet_tpu/ops/block_pallas.py:2197"),
 }
 CLUSTER_KERNELS = {
     "cluster_mix": dict(source="asy_vrnet_tpu_torch/csrc/cluster_mix.cu",
@@ -222,29 +256,38 @@ def mixer_bounds(b, h, w, c, heads, d, fold):
     return flops, byts
 
 
-def mlp_bounds(b, h, w, c, hid):
+def mlp_bounds(b, h, w, c, hid, z1=False):
+    """Per token 4*C*hid flops; bytes: x in, out out (bf16), w1, w2, and with
+    `z1` the pre-GELU z1 written (bf16)."""
     t = b * h * w
-    return 4 * t * c * hid, 2 * t * c * 2 + 2 * c * hid * 2
+    return 4 * t * c * hid, 2 * t * c * 2 + 2 * c * hid * 2 + (2 * t * hid if z1 else 0)
 
 
-def mixer_bwd_bounds(b, h, w, c, heads, d, fold, m=4):
+def mixer_bwd_bounds(b, h, w, c, heads, d, fold, m=4, remat=False):
     """Per token: feat, d feat @ wf^T and dWf (6*C*I), the winner's d sim,
     the dispatch and the sim-weighted sums (10*C per head), the norms (4*I),
     the pooling (2*C).  Bytes: x, g, dxn (bf16), the pack (cosine bf16 +
     proposal int8 per (token, head); two center sets), wf, wv, w2 (bf16),
-    the f32 weight gradients."""
+    the f32 weight gradients.  K6r (`remat`) reads no pack and adds the
+    forward remat's per-token 2*C*I (feat for the cosines) + 2*I*(M+1)
+    (the norms and the M cosines) flops."""
     t, inner, regions = b * h * w, heads * d, b * fold * fold
     flops = t * (6 * c * inner + 10 * c * heads + 4 * inner + 2 * c)
-    byts = (3 * t * c * 2 + 3 * t * heads + 2 * regions * heads * m * d * 2
-            + 3 * c * inner * 2 + (3 * c * inner + 2 * inner + c) * 4)
+    byts = 3 * t * c * 2 + 3 * c * inner * 2 + (3 * c * inner + 2 * inner + c) * 4
+    if remat:
+        flops += t * (2 * c * inner + 2 * inner * (m + 1))
+    else:
+        byts += 3 * t * heads + 2 * regions * heads * m * d * 2
     return flops, byts
 
 
-def mlp_bwd_bounds(b, h, w, c, hid):
-    """Per token 8*C*hid flops; bytes: x, g, dxn (bf16), w1, w2 (bf16), the
-    f32 weight gradients."""
+def mlp_bwd_bounds(b, h, w, c, hid, z1=False):
+    """Per token 8*C*hid flops (z1's recompute, where the kernel does it, is
+    not counted); bytes: x, g, dxn (bf16), w1, w2 (bf16), the f32 weight
+    gradients, and with `z1` the stored z1 (bf16) read."""
     t = b * h * w
-    return 8 * t * c * hid, 3 * t * c * 2 + 2 * c * hid * 2 + (2 * c * hid + hid + c) * 4
+    byts = 3 * t * c * 2 + 2 * c * hid * 2 + (2 * c * hid + hid + c) * 4
+    return 8 * t * c * hid, byts + (2 * t * hid if z1 else 0)
 
 
 def cluster_mix_bounds(b, h, w, inner, itemsize, backward, m=4):
@@ -331,6 +374,8 @@ def iou(a, b):
 
 CATEGORIES = (
     ("cluster_mix_bwd (ours)", ("cluster_mix_bwd",)),
+    ("mixer_block_bwd_remat (ours)", ("mixer_bwd_kernel<__nv_bfloat16, true>",
+                                      "mixer_bwd_kernel<float, true>")),
     ("cluster_mix (ours)", ("cluster_mix",)),
     ("mixer_block_bwd (ours)", ("mixer_bwd",)),
     ("mlp_block_bwd (ours)", ("mlp_block_bwd",)),
@@ -389,6 +434,22 @@ def profile_forward(model, image, radar, reps=3):
 
     with torch.no_grad():
         return profile_calls(lambda: model(image, radar), reps)
+
+
+@contextlib.contextmanager
+def switches(env):
+    """Set the residual switches (environment variables of ops/block.py) for
+    the duration."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def reset_launches(*modules):
@@ -526,6 +587,156 @@ def check_cluster_mix(dev):
     return stats, agreement
 
 
+def close_bwd(kname, name, got, want, dt, dxn_ref):
+    """Log and check one backward output against its twin (tolerances in
+    the docstring); returns max |diff|."""
+    import torch
+
+    got, want = got.float(), want.float()
+    scale = want.abs().max().item()
+    err = (got - want).abs().max().item()
+    if dt == torch.float32:
+        ok = err <= 1e-4 * max(1.0, scale)
+    elif name == "dxn":
+        ok = err <= 2 * bf16_ulp(scale)
+    elif name == "sums":
+        ok = bool(((got - want).abs() <= 1e-3 * dxn_ref.float().abs().sum(
+            dim=(1, 2, 3))[:, None]).all())
+    else:
+        ok = err <= 0.02 * max(scale, 1e-6)
+    if not ok:
+        log(f"[check {kname} {str(dt)[6:]}] {name}: max|diff| {err:.4e} max|ref| {scale:.4e}")
+    check(ok, f"{kname} {name} {str(dt)[6:]}")
+    return err
+
+
+def check_remat_z1(dev):
+    """K6r (the full-remat mixer backward) and the z1 variants of K1 and K5
+    against their twins at the 7 block shapes with the train batch, f32 and
+    bf16, then their times at bf16.  K6r's rebuilt assignment must equal the
+    one K2 stored in its pack, bit for bit; its twin is fed that assignment
+    (near-ties in bf16 can fall either way in a twin that sums in another
+    order), as K6's twin is fed K2's pack.  K6r against K6 fed K2's pack:
+    the same function, held to f32 rounding in f32 and reported in bf16.
+    The z1 variants: K1's output equals K1's without z1 (the same bits), z1
+    within 1e-5 (f32) or 2 bf16 ulps of max |z1| of its twin's; K5 and its
+    twin are fed the same z1 and held as K5.  -> {kernel: stats}."""
+    import torch
+
+    from asy_vrnet_tpu_torch.ops import block
+
+    names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
+    stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "plain_ms": 0.0,
+                 "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0} for k in REMAT_KERNELS}
+    stats["mixer_block_bwd_remat"]["vs_k6_bf16"] = []
+    g = torch.Generator().manual_seed(13)
+
+    def rn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g) * scale
+
+    def cast(ws, dt):
+        return [w.to(dev, dt if w.dim() == 2 else torch.float32).contiguous() for w in ws]
+
+    for (name, _, h, w, c, heads, d, fold, hid, calls) in SHAPES:
+        b, inner = TRAIN_BATCH, heads * d
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        mixer_w = (rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
+                   rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
+                   rn(inner, c, scale=inner ** -0.5), rn(c, scale=0.1),
+                   torch.tensor([1.5, 0.2]))
+        mlp_w = (rn(c, hid, scale=c ** -0.5), rn(hid, scale=0.1),
+                 rn(hid, c, scale=hid ** -0.5), rn(c, scale=0.1))
+        x32, g32 = rn(b, h, w, c), rn(b, h, w, c, scale=0.5)
+        for dt in (torch.float32, torch.bfloat16):
+            tag = f"{name} {str(dt)[6:]}"
+            x, gy = x32.to(dev, dt), g32.to(dev, dt)
+            st = block.gn1_stats(x)
+            mw, lw = cast(mixer_w, dt), cast(mlp_w, dt)
+            wf, bf, wv, bv, w2, _, ab = mw
+            margs = (x, gy, st, wf, bf, wv, bv, w2, ab)
+            _, _, pack = block.mixer_block(x, st, *mw, return_residuals=True, **kw)
+            *got, asg = block.mixer_block_bwd(*margs, None, return_assign=True, **kw)
+            again = block.mixer_block_bwd(*margs, None, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K6r bits {tag}")
+            same = torch.equal(asg, pack[1])
+            log(f"[check mixer_block_bwd_remat {tag}] rebuilt assignment equals K2's, bit "
+                f"for bit: {same} ({(asg == pack[1]).float().mean().item():.6f} equal)")
+            check(same, f"K6r rebuilds K2's assignment {tag}")
+            want = block.mixer_block_bwd_remat_plain(*margs, assign=asg, **kw)
+            errs = [close_bwd("mixer_block_bwd_remat", n, a, r, dt, want[0])
+                    for n, a, r in zip(names, got, want)]
+            k6 = block.mixer_block_bwd(*margs, pack, **kw)
+            vs = []
+            for n, a, r in zip(names, got, k6):
+                sc = r.float().abs().max().item()
+                err = (a.float() - r.float()).abs().max().item()
+                vs.append(err / max(sc, 1e-12))
+                if dt == torch.float32 and n != "sums":
+                    check(err <= 1e-4 * max(1.0, sc), f"K6r vs K6 {n} {tag}")
+            log(f"[check mixer_block_bwd_remat {tag}] vs twin max|diff| " + " ".join(
+                f"{n} {e:.3e}" for n, e in zip(names, errs)) + "; vs K6 fed K2's pack, "
+                "max|diff|/max|K6| " + " ".join(f"{n} {v:.3e}" for n, v in zip(names, vs)))
+            # K1 with z1, K5 reading it
+            w1, b1, w2m, _ = lw
+            out_z, z1 = block.mlp_block(x, st, *lw, return_z1=True)
+            out = block.mlp_block(x, st, *lw)
+            torch.cuda.synchronize()
+            check(torch.equal(out_z, out), f"K1 with z1 gives K1's output {tag}")
+            _, zref = block.mlp_block_plain(x, st, *lw, return_z1=True)
+            zs = zref.float().abs().max().item()
+            zerr = (z1.float() - zref.float()).abs().max().item()
+            check(zerr <= (1e-5 * max(1.0, zs) if dt == torch.float32 else 2 * bf16_ulp(zs)),
+                  f"K1 z1 {tag}: max|diff| {zerr:.3e} max|z1| {zs:.3e}")
+            largs = (x, gy, st, w1, b1, w2m, z1)
+            lgot = block.mlp_block_bwd(*largs)
+            again = block.mlp_block_bwd(*largs)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip(lgot, again)), f"K5 z1 bits {tag}")
+            lwant = block.mlp_block_bwd_plain(*largs)
+            lerr = [close_bwd("mlp_block_bwd_z1", n, a, r, dt, lwant[0]) for n, a, r in zip(
+                ("dxn", "dw1", "db1", "dw2", "db2", "sums"), lgot, lwant)]
+            log(f"[check mlp_block_z1 {tag}] output equals K1's; z1 max|diff| {zerr:.3e} "
+                f"(max|z1| {zs:.3e}); [check mlp_block_bwd_z1 {tag}] max|diff| dxn "
+                f"{lerr[0]:.3e} dw1 {lerr[1]:.3e} dw2 {lerr[3]:.3e}")
+            if dt == torch.bfloat16:
+                stats["mixer_block_bwd_remat"]["vs_k6_bf16"].append(
+                    {"shape": name, **dict(zip(names, vs))})
+                for kname, e in (("mixer_block_bwd_remat", errs[0]), ("mlp_block_z1", zerr),
+                                 ("mlp_block_bwd_z1", lerr[0])):
+                    stats[kname]["max_abs_err"] = max(stats[kname]["max_abs_err"], e)
+        # times at bf16 (the last dtype's inputs)
+        fns = {
+            "mixer_block_bwd_remat": (
+                lambda: block.mixer_block_bwd(*margs, None, **kw),
+                lambda: block.mixer_block_bwd_remat_plain(*margs, **kw),
+                mixer_bwd_bounds(b, h, w, c, heads, d, fold, remat=True)),
+            "mlp_block_z1": (lambda: block.mlp_block(x, st, *lw, return_z1=True),
+                             lambda: block.mlp_block_plain(x, st, *lw, return_z1=True),
+                             mlp_bounds(b, h, w, c, hid, z1=True)),
+            "mlp_block_bwd_z1": (lambda: block.mlp_block_bwd(*largs),
+                                 lambda: block.mlp_block_bwd_plain(*largs),
+                                 mlp_bwd_bounds(b, h, w, c, hid, z1=True)),
+        }
+        for kname, (fk, fp, (flops, byts)) in fns.items():
+            ms, pms = cuda_ms(fk, 10), cuda_ms(fp, 2, warmup=1)
+            bms, by = bound_ms(flops, byts)
+            log(f"[time {kname} {name} bs={b}] kernel {ms:.4f} ms, plain {pms:.4f} ms, "
+                f"bound {bms:.5f} ms ({by}), x{calls} per step")
+            ks = stats[kname]
+            ks["per_shape"].append({"shape": name, "ms": ms, "plain_ms": pms, "bound_ms": bms,
+                                    "bound_by": by, "calls_per_step": calls})
+            ks["ms"] += calls * ms
+            ks["plain_ms"] += calls * pms
+            ks["bound_ms"] += calls * bms
+            ks["flops_ms"] += calls * flops / PEAK_FLOPS * 1e3
+            ks["bytes_ms"] += calls * byts / PEAK_BYTES * 1e3
+        del margs, largs, pack, fns
+    for ks in stats.values():
+        ks["bound_by"] = "operations" if ks.pop("flops_ms") >= ks.pop("bytes_ms") else "bytes"
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -649,8 +860,8 @@ def main() -> int:
     for hk in hooks:
         hk.remove()
     log(f"[main path] launches {launches}, {cf.LAUNCHES}")
-    check(launches == {"mixer_block": 27, "mlp_block": 27, "mixer_block_bwd": 0,
-                       "mlp_block_bwd": 0} and not any(cf.LAUNCHES.values()), launches)
+    check(launches == {**dict.fromkeys(block.LAUNCHES, 0), "mixer_block": 27, "mlp_block": 27}
+          and not any(cf.LAUNCHES.values()), launches)
     want = {(b, c, h, w, heads, d, fold) for (_, b, h, w, c, heads, d, fold, _, _) in SHAPES}
     check({s + (hd, dd, f) for s, hd, dd, f in seen} == want, seen)
     check([tuple(o.shape) for o in det] == [(8, 64, 64, 9), (8, 32, 32, 9), (8, 16, 16, 9)],
@@ -716,8 +927,8 @@ def main() -> int:
             f"ground truth {gt}; matched at IoU 0.5 {hits}")
     log(f"[detector] launches over 4 requests {dict(block.LAUNCHES)}; "
         f"recall@0.5 {found}/{total}")
-    check(block.LAUNCHES == {"mixer_block": 108, "mlp_block": 108, "mixer_block_bwd": 0,
-                             "mlp_block_bwd": 0}, dict(block.LAUNCHES))
+    check(block.LAUNCHES == {**dict.fromkeys(block.LAUNCHES, 0), "mixer_block": 108,
+                             "mlp_block": 108}, dict(block.LAUNCHES))
     check(found >= 0.5 * total, f"recall {found}/{total}")
 
     # ---- 5. timing ----
@@ -892,26 +1103,6 @@ def main() -> int:
     pack_agreement = []
     g = torch.Generator().manual_seed(7)
 
-    def close(kname, name, got, want, dt, dxn_ref):
-        """Log and check one backward output against its twin (tolerances in
-        the docstring); returns max |diff|."""
-        got, want = got.float(), want.float()
-        scale = want.abs().max().item()
-        err = (got - want).abs().max().item()
-        if dt == torch.float32:
-            ok = err <= 1e-4 * max(1.0, scale)
-        elif name == "dxn":
-            ok = err <= 2 * bf16_ulp(scale)
-        elif name == "sums":
-            ok = bool(((got - want).abs() <= 1e-3 * dxn_ref.float().abs().sum(
-                dim=(1, 2, 3))[:, None]).all())
-        else:
-            ok = err <= 0.02 * max(scale, 1e-6)
-        if not ok:
-            log(f"[check {kname} {str(dt)[6:]}] {name}: max|diff| {err:.4e} max|ref| {scale:.4e}")
-        check(ok, f"{kname} {name} {str(dt)[6:]}")
-        return err
-
     for (name, _, h, w, c, heads, d, fold, hid, _) in SHAPES:
         b, inner = TRAIN_BATCH, heads * d
         mixer_w = (rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
@@ -958,7 +1149,7 @@ def main() -> int:
             check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K6 bits {tag}")
             want = block.mixer_block_bwd_plain(*margs, **kw)
             names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
-            merr = [close("mixer_block_bwd", n, a, r, dt, want[0])
+            merr = [close_bwd("mixer_block_bwd", n, a, r, dt, want[0])
                     for n, a, r in zip(names, got, want)]
             w1, b1, w2m, _ = lw
             largs = (x, gy, st, w1, b1, w2m)
@@ -968,7 +1159,7 @@ def main() -> int:
             check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K5 bits {tag}")
             want = block.mlp_block_bwd_plain(*largs)
             names = ("dxn", "dw1", "db1", "dw2", "db2", "sums")
-            lerr = [close("mlp_block_bwd", n, a, r, dt, want[0])
+            lerr = [close_bwd("mlp_block_bwd", n, a, r, dt, want[0])
                     for n, a, r in zip(names, got, want)]
             log(f"[check mixer_block_bwd {tag}] max|diff| dxn {merr[0]:.3e} dwf {merr[1]:.3e} "
                 f"dwv {merr[3]:.3e} dw2 {merr[5]:.3e} dalpha/beta {merr[7]:.3e}; "
@@ -1008,6 +1199,9 @@ def main() -> int:
             bound_by="operations" if tot["flops_ms"] >= tot["bytes_ms"] else "bytes")
     del bwd_inputs
 
+    # ---- 7b. K6r and the z1 variants of K1 and K5 vs twins at the train batch ----
+    remat_stats = check_remat_z1(dev)
+
     # ---- 8. the stand-alone cluster mix (K7, K7b) vs twins at the train batch ----
     cl_stats, cl_agreement = check_cluster_mix(dev)
 
@@ -1026,17 +1220,31 @@ def main() -> int:
                 (cf, "cluster_mix_bwd", cf.cluster_mix_bwd_plain)]
     counters = (block, cf, segf, simota_fused)
 
-    def run_train(tag, fused, steps, blocks, mixes, variant="coc_small", drop_seed=None):
-        """`steps` train steps from the r05 weights; launch counts of the
-        first (each fused block kernel `blocks` times, K7 and K7b `mixes`
-        times); parameters, EMA and BN stats moved; the same first step
-        through the plain twins, with drop-path (if any) drawing from a
-        generator seeded with `drop_seed` in both.  -> (state, step fn,
-        history, launches, peak GiB)."""
+    def counts(k2=0, k1=0, k6=0, k5=0, k6r=0, k1z=0, k5z=0, k7=0):
+        """Expected launches per step of every block and cluster-mix kernel
+        (K4 and K4b once each)."""
+        return {"mixer_block": k2, "mlp_block": k1, "mixer_block_bwd": k6, "mlp_block_bwd": k5,
+                "mixer_block_bwd_remat": k6r, "mlp_block_z1": k1z, "mlp_block_bwd_z1": k5z,
+                "cluster_mix": k7, "cluster_mix_bwd": k7, "seg_loss_sums": 1,
+                "seg_loss_dlogits": 1}
+
+    def run_train(tag, fused, steps, want, variant="coc_small", drop_seed=None,
+                  remat="none", env=None):
+        """`steps` train steps from the r05 weights under `train_remat` =
+        `remat` and the residual switches `env`; launch counts of the first
+        (`want`, SimOTA at least once); parameters, EMA and BN stats moved;
+        the same first step through the plain twins, with drop-path (if any)
+        drawing from a generator seeded with `drop_seed` in both.  ->
+        (state, step fn, history, launches, peak GiB, step GiB: the peak
+        above what was allocated before the first step)."""
+        with switches(env or {}):
+            return _run_train(tag, fused, steps, want, variant, drop_seed, remat)
+
+    def _run_train(tag, fused, steps, want, variant, drop_seed, remat):
         tcfg = Config(
             model=ModelConfig(phi="nano", variant=variant, compute_dtype="bfloat16",
                               input_size=(512, 512), seg_signed_logits=True,
-                              use_pallas_cluster=fused),
+                              use_pallas_cluster=fused, train_remat=remat),
             loss=LossConfig(max_boxes=MAX_BOXES, use_pallas_seg=True))
         state = create_train_state(tcfg, weights=R05)                # the card by default
         lr, _ = adaptive_lr(tcfg.optim, TRAIN_BATCH)
@@ -1049,14 +1257,12 @@ def main() -> int:
         ema_before = {k: v.clone() for k, v in state.ema.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
         reset_launches(*counters)
         state, first = step(state, batches[0])
         torch.cuda.synchronize()
         launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
         log(f"[train {tag}] launches in one step {launches}")
-        want = {"mixer_block": blocks, "mlp_block": blocks, "mixer_block_bwd": blocks,
-                "mlp_block_bwd": blocks, "cluster_mix": mixes, "cluster_mix_bwd": mixes,
-                "seg_loss_sums": 1, "seg_loss_dlogits": 1}
         check({k: launches[k] for k in want} == want and launches["simota_assign"] >= 1,
               launches)
         history = [{k: float(v) for k, v in first.items()}]
@@ -1064,6 +1270,9 @@ def main() -> int:
             state, m = step(state, bt)
             history.append({k: float(v) for k, v in m.items()})
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_gib = peak - held / 2 ** 30
+        log(f"[train {tag}] peak memory {peak:.3f} GiB, {step_gib:.3f} GiB above the "
+            f"{held / 2 ** 30:.3f} GiB held before the first step")
         for i, m in enumerate(history):
             log(f"[train {tag}] step {i + 1}: " + ", ".join(f"{k} {v:.5f}" for k, v in m.items()))
             check(all(np.isfinite(v) for v in m.values()) and m["num_fg"] > 0, f"step {i + 1}")
@@ -1107,10 +1316,12 @@ def main() -> int:
             ok = (abs(v - pv) <= max(0.01 * pv, 1.0) if k == "num_fg"
                   else rel_diff(v, pv) <= 0.02)
             check(ok, f"first step {k}")
-        return state, step, history, launches, peak
+        return state, step, history, launches, peak, step_gib
 
-    state, train_step, history, train_launches, train_peak = run_train("fused", True, 5, 27, 0)
-    mstate, mstep, mhistory, _, mpeak = run_train("module path", False, 2, 0, 0)
+    fused4 = dict(k2=27, k1=27, k6=27, k5=27)
+    state, train_step, history, train_launches, train_peak, train_gib = run_train(
+        "fused", True, 5, counts(**fused4))
+    mstate, mstep, mhistory, _, mpeak, mgib = run_train("module path", False, 2, counts())
     for k in ("loss", "loss_det", "loss_seg"):
         v, mv = history[0][k], mhistory[0][k]
         log(f"[train fused vs module path] first step {k}: {v:.6f} vs {mv:.6f}")
@@ -1121,8 +1332,9 @@ def main() -> int:
     # module path with K7/K7b, the other 5 the fused blocks ----
     tconfig.COC_VARIANTS[DROP_PATH_VARIANT] = dataclasses.replace(
         tconfig.COC_VARIANTS["coc_small"], drop_path_rate=0.1)
-    dstate, dstep, dhistory, drop_launches, dpeak = run_train(
-        "stochastic depth", True, 5, 5, 22, variant=DROP_PATH_VARIANT, drop_seed=11)
+    dstate, dstep, dhistory, drop_launches, dpeak, dgib = run_train(
+        "stochastic depth", True, 5, counts(k2=5, k1=5, k6=5, k5=5, k7=22),
+        variant=DROP_PATH_VARIANT, drop_seed=11)
     reset_launches(block, cf)
     dstate.model.eval()
     with torch.no_grad():
@@ -1132,7 +1344,30 @@ def main() -> int:
     check(block.LAUNCHES["mixer_block"] == block.LAUNCHES["mlp_block"] == 27
           and not any(cf.LAUNCHES.values()), "eval forward takes the fused blocks (JAX's gate)")
 
-    # ---- 12. overfit one fixed 128^2 batch, f32, 30 steps, fused blocks ----
+    # ---- 12. the JAX package's memory settings: the lean step
+    # (train_remat "blocks", ASY_MIXER_BWD_RESIDUALS=0: K6r on every block,
+    # K2 again for each of the 24 recomputed backbone blocks, K1 not), the z1
+    # step (ASY_MLP_BWD_RESIDUALS=1) and the "fusion" and "stages" spans.
+    # The forward is the fused step's, so the first step's loss is too ----
+    variants = {}
+    for tag, steps, want, remat, env in (
+            ("lean", 5, counts(k2=51, k1=27, k6r=27, k5=27), "blocks",
+             {"ASY_MIXER_BWD_RESIDUALS": "0"}),
+            ("z1", 5, counts(k2=27, k1z=27, k6=27, k5z=27), "none",
+             {"ASY_MLP_BWD_RESIDUALS": "1"}),
+            # "stages" recomputes each stack's mixer halves and all but its
+            # last MLP half: 24 + 16 more launches of K2 and K1
+            ("remat fusion", 2, counts(**fused4), "fusion", None),
+            ("remat stages", 2, counts(k2=51, k1=43, k6=27, k5=27), "stages", None)):
+        variants[tag] = run_train(tag, True, steps, want, remat=remat, env=env)
+        first = variants[tag][2][0]
+        log(f"[train {tag} vs fused] first step loss {first['loss']:.7f} vs "
+            f"{history[0]['loss']:.7f}, num_fg {first['num_fg']:.0f} vs "
+            f"{history[0]['num_fg']:.0f}")
+        check(rel_diff(first["loss"], history[0]["loss"]) <= 1e-5
+              and first["num_fg"] == history[0]["num_fg"], f"{tag} first step = fused")
+
+    # ---- 13. overfit one fixed 128^2 batch, f32, 30 steps, fused blocks ----
     ocfg = Config(
         model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="float32",
                           input_size=(128, 128), seg_signed_logits=True,
@@ -1155,18 +1390,19 @@ def main() -> int:
     del ostate
 
     # step time, images/s, device-busy share, launches per step
-    def time_step(tag, st, fn, peak, hist):
+    def time_step(tag, st, fn, peak, hist, step_gib=None, env=None):
         def one_step():
             fn(st, batches[0])
 
-        one_step()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(5):
+        with switches(env or {}):
             one_step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3 / 5
-        tp = profile_calls(one_step, reps=2)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                one_step()
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / 5
+            tp = profile_calls(one_step, reps=2)
         log(f"[train step {tag} bs={TRAIN_BATCH}] {step_ms:.2f} ms, "
             f"{TRAIN_BATCH / step_ms * 1e3:.1f} images/s, peak memory {peak:.3f} GiB; "
             f"profiled: wall {tp['wall_ms']:.2f} ms, device busy {tp['device_ms']:.2f} ms "
@@ -1175,9 +1411,9 @@ def main() -> int:
             log(f"[train step {tag} top] {v:.4f} ms x{n} {name}")
         return {"batch": TRAIN_BATCH, "step_ms": step_ms,
                 "images_per_s": TRAIN_BATCH / step_ms * 1e3, "peak_gib": peak,
-                "profile": tp, "history": hist}
+                "step_gib": step_gib, "profile": tp, "history": hist}
 
-    train = time_step("fused", state, train_step, train_peak, history)
+    train = time_step("fused", state, train_step, train_peak, history, train_gib)
     train["overfit"] = [olosses[0], olosses[-1]]
     train_module = time_step("module path", mstate, mstep, mpeak, mhistory)
     log("[train step] fused vs module path: " + ", ".join(
@@ -1199,6 +1435,30 @@ def main() -> int:
         log(f"[train step device ms] {cat}: fused {train['profile']['by_category_ms'][cat]:.4f}, "
             f"module path {train_module['profile']['by_category_ms'][cat]:.4f}, stochastic "
             f"depth {train_drop['profile']['by_category_ms'][cat]:.4f}")
+    # the memory settings beside the fused step (the same call and card)
+    table = {"fused": train}
+    for (tag, env), (vs, vstep, vhist, _, vpeak, vgib) in zip(
+            (("lean", {"ASY_MIXER_BWD_RESIDUALS": "0"}), ("z1", {"ASY_MLP_BWD_RESIDUALS": "1"}),
+             ("remat fusion", None), ("remat stages", None)), variants.values()):
+        table[tag] = time_step(tag, vs, vstep, vpeak, vhist, vgib, env)
+    log("[train memory settings] step ms | images/s | launches | device busy ms | busy "
+        "share | peak GiB | GiB above the state")
+    for tag, t in table.items():
+        log(f"[train memory settings] {tag}: {t['step_ms']:.2f} | {t['images_per_s']:.1f} | "
+            f"{t['profile']['launches']} | {t['profile']['device_ms']:.2f} | "
+            f"{t['profile']['busy_share']:.3f} | {t['peak_gib']:.3f} | {t['step_gib']:.3f}")
+    for cat in train["profile"]["by_category_ms"]:
+        log(f"[train memory settings device ms] {cat}: " + ", ".join(
+            f"{tag} {t['profile']['by_category_ms'][cat]:.4f}" for tag, t in table.items()))
+    remat_launches = {**variants["lean"][3], **{k: variants["z1"][3][k] for k in
+                                               ("mlp_block_z1", "mlp_block_bwd_z1")}}
+    for kname in REMAT_KERNELS:
+        st = remat_stats[kname]
+        report.append({"name": kname, "route": "cuda", **REMAT_KERNELS[kname],
+                       "launches": remat_launches[kname], "max_abs_err": st["max_abs_err"],
+                       "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+                       "bound_by": st["bound_by"], "library_ms": None,
+                       "per_shape": st["per_shape"]})
     for kname in BWD_KERNELS:
         st = bwd_stats[kname]
         report.append({"name": kname, "route": "cuda", **BWD_KERNELS[kname],
@@ -1226,6 +1486,8 @@ def main() -> int:
     log(f"[total] {time.time() - t_start:.1f} s")
     print(json.dumps({"forward": fwd, "train": train, "train_module_path": train_module,
                       "train_stochastic_depth": train_drop,
+                      "train_memory_settings": {k: v for k, v in table.items() if k != "fused"},
+                      "remat_vs_k6_bf16": remat_stats["mixer_block_bwd_remat"]["vs_k6_bf16"],
                       "cluster_mix_assignment_agreement_bf16": cl_agreement,
                       "mixer_assignment_agreement_bf16": stats_out["mixer_block"].get("agreement"),
                       "pack_assignment_agreement_bf16": pack_agreement,

@@ -385,6 +385,126 @@ def test_mlp_bwd_kernel_matches_plain(dev, shape, dt):
         _bwd_close(name, a, w_, dt, want[0])
 
 
+# ---------------------------------------------------------------------------
+# K6r (the full-remat mixer backward) and the z1 variants of K1 and K5.  K6r
+# must rebuild the assignment K2 stored, bit for bit; its twin is fed that
+# assignment (as K6's twin is fed K2's pack).  Tolerances as the block
+# backward above; K1 with z1 gives K1's output bits, and z1 lies within
+# 1e-5 (f32) or 2 bf16 ulps of max |z1| (bf16) of its twin's.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_bwd_remat_kernel_matches_plain(dev, shape, dt):
+    x, g, st, args, kw = _mixer_setup(dev, shape, dt, 5)
+    wf, bf, wv, bv, w2, _, ab = args
+    _, _, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    before = block.LAUNCHES["mixer_block_bwd_remat"]
+    *got, asg = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, None,
+                                      return_assign=True, **kw)
+    again = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, None, **kw)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["mixer_block_bwd_remat"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert torch.equal(asg, pack[1])
+    want = block.mixer_block_bwd_remat_plain(x, g, st, wf, bf, wv, bv, w2, ab, assign=asg, **kw)
+    names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
+    for name, a, w_ in zip(names, got, want):
+        _bwd_close(name, a, w_, dt, want[0])
+
+
+@pytest.mark.parametrize("remat", [False, True], ids=["k6", "k6r"])
+def test_mixer_bwd_fits_shared_memory_at_batch_32(dev, remat):
+    """nano stage 2 at batch 32: its 128 regions fill the card with one head
+    group per region, whose block (8 heads' columns) would need ~340 KB of
+    shared memory; the backward splits the heads into groups that fit."""
+    shape = ("stage2_b32", 32, 32, 32, 80, 8, 32, 2, 320)
+    x, g, st, args, kw = _mixer_setup(dev, shape, torch.bfloat16, 7)
+    wf, bf, wv, bv, w2, _, ab = args
+    _, _, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    pack = None if remat else pack
+    got = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, pack, return_assign=remat,
+                                **kw)
+    torch.cuda.synchronize()
+    assign = got[-1] if remat else None
+    want = (block.mixer_block_bwd_remat_plain(x, g, st, wf, bf, wv, bv, w2, ab, assign=assign,
+                                              **kw) if remat else
+            block.mixer_block_bwd_plain(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw))
+    names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
+    for name, a, w_ in zip(names, got, want):
+        _bwd_close(name, a, w_, torch.bfloat16, want[0])
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mlp_z1_kernels_match_plain(dev, shape, dt):
+    _, b, h, w, c, heads, d, fold, hid = shape
+    n, _, mlp = _weights(c, heads * d, hid, 6)
+    x = n(b, h, w, c).to(dev, dt)
+    g = (n(b, h, w, c) * 0.5).to(dev, dt)
+    st = block.gn1_stats(x)
+    lw = _cast(mlp, dt, dev)
+    before = dict(block.LAUNCHES)
+    out, z1 = block.mlp_block(x, st, *lw, return_z1=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, block.mlp_block(x, st, *lw))
+    _, zref = block.mlp_block_plain(x, st, *lw, return_z1=True)
+    scale = zref.float().abs().max().item()
+    tol = 1e-5 * max(1.0, scale) if dt == torch.float32 else 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+    assert (z1.float() - zref.float()).abs().max().item() <= tol
+    w1, b1, w2, _ = lw
+    got = block.mlp_block_bwd(x, g, st, w1, b1, w2, z1)
+    again = block.mlp_block_bwd(x, g, st, w1, b1, w2, z1)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = block.mlp_block_bwd_plain(x, g, st, w1, b1, w2, z1)
+    for name, a, w_ in zip(("dxn", "dw1", "db1", "dw2", "db2", "sums"), got, want):
+        _bwd_close(name, a, w_, dt, want[0])
+    launched = {k: block.LAUNCHES[k] - before[k] for k in before}
+    assert launched == {**dict.fromkeys(before, 0), "mlp_block_z1": 1, "mlp_block": 1,
+                        "mlp_block_bwd_z1": 2}
+
+
+def test_remat_train_steps_on_card_match_cpu(dev, monkeypatch):
+    """coc_dryrun 128^2 f32, one train step under train_remat "blocks" with
+    ASY_MIXER_BWD_RESIDUALS=0 and one with ASY_MLP_BWD_RESIDUALS=1: the card
+    (K6r; K1 and K5 with z1) against the CPU (their twins) from the same
+    state, metrics rtol 1e-3 as the fused step above; launches per step."""
+    from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.data.synthetic import make_batch
+    from asy_vrnet_tpu_torch.train.optim import set_learning_rate
+    from asy_vrnet_tpu_torch.train.state import create_train_state
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    batch = make_batch(np.random.default_rng(5), 2, (128, 128), max_boxes=16)
+    for remat, env, want in (
+            ("blocks", ("ASY_MIXER_BWD_RESIDUALS", "0"),
+             {"mixer_block": 18, "mlp_block": 10, "mixer_block_bwd_remat": 10,
+              "mlp_block_bwd": 10}),
+            ("none", ("ASY_MLP_BWD_RESIDUALS", "1"),
+             {"mixer_block": 10, "mlp_block_z1": 10, "mixer_block_bwd": 10,
+              "mlp_block_bwd_z1": 10})):
+        monkeypatch.setenv(*env)
+        cfg = Config(model=ModelConfig(phi="nano", variant="coc_dryrun", compute_dtype="float32",
+                                       input_size=(128, 128), train_remat=remat),
+                     loss=LossConfig(max_boxes=16, use_pallas_seg=True))
+        torch.manual_seed(0)
+        cpu = create_train_state(cfg, device="cpu")
+        card = create_train_state(cfg, device=dev)
+        card.model.load_state_dict(cpu.model.state_dict())
+        out = {}
+        for name, state, device in (("cpu", cpu, "cpu"), ("card", card, dev)):
+            set_learning_rate(state.optimizer, 1e-2)
+            before = dict(block.LAUNCHES)
+            _, m = build_train_step(cfg, device=device)(state, batch)
+            out[name] = {k: float(v) for k, v in m.items()}
+            launched = {k: block.LAUNCHES[k] - before[k] for k in before}
+            assert launched == {**dict.fromkeys(before, 0), **({} if name == "cpu" else want)}
+        for k in out["cpu"]:
+            np.testing.assert_allclose(out["card"][k], out["cpu"][k], rtol=1e-3, err_msg=k)
+        monkeypatch.delenv(env[0])
+
+
 def test_fused_train_step_on_card_matches_cpu(dev):
     """coc_dryrun 128^2 f32, one train step through the fused blocks: the
     card (K2 with its pack, K1, K6, K5) against the CPU (their twins) from
@@ -412,8 +532,8 @@ def test_fused_train_step_on_card_matches_cpu(dev):
         out[name] = {k: float(v) for k, v in m.items()}
         launched = {k: block.LAUNCHES[k] - before[k] for k in before}
         assert launched == ({k: 0 for k in before} if name == "cpu" else
-                            {"mixer_block": 10, "mlp_block": 10, "mixer_block_bwd": 10,
-                             "mlp_block_bwd": 10})
+                            {**dict.fromkeys(before, 0), "mixer_block": 10, "mlp_block": 10,
+                             "mixer_block_bwd": 10, "mlp_block_bwd": 10})
     for k in out["cpu"]:
         np.testing.assert_allclose(out["card"][k], out["cpu"][k], rtol=1e-3, err_msg=k)
     for (k, a), b in zip(card.model.state_dict().items(), cpu.model.state_dict().values()):

@@ -38,7 +38,8 @@ def test_the_walk_covers_the_training_modules_and_the_smoke_script():
         "ops/losses_seg", "ops/losses_seg_fused", "ops/simota", "ops/simota_fused",
         "ops/losses_det", "ops/kernels", "train/optim", "train/state", "train/train_step",
         "data/synthetic", "data/preprocess", "utils/weights", "utils/device",
-        "ops/block", "ops/cluster", "ops/cluster_fused", "models/cluster_block")}
+        "ops/block", "ops/cluster", "ops/cluster_fused", "models/cluster_block",
+        "models/remat")}
     assert want <= have, sorted(want - have)
 
 

@@ -3,6 +3,7 @@ JAX EfficientVRNet (f32, fused Pallas block kernels in interpret mode,
 literal pre-stem) and the port model carrying the same random weights
 through the bridge."""
 import numpy as np
+import pytest
 
 import jax
 import jax.numpy as jnp
@@ -15,6 +16,21 @@ from asy_vrnet_tpu_torch.config import ModelConfig
 from asy_vrnet_tpu_torch.models.cluster_block import ClusterBlock
 from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
 from asy_vrnet_tpu_torch.utils.weights import state_dict_from_flax
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One torch intra-op thread for the module's tests, restored after.
+    The suite runs several workers on a few cores, and torch's default
+    thread pool per worker then multiplies the CPU tests' wall time (the
+    eager steps here gain nothing from more threads even alone).  Import it
+    into a test module to apply it there."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def config_kwargs(size: int) -> dict:
