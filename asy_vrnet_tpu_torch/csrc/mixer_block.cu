@@ -51,6 +51,22 @@
 // and B (and the mixed centers) are the device code of mixer_block.cuh, which
 // the full-remat backward (K6r) runs too, so that it rebuilds this kernel's
 // assignment bit for bit.
+//
+// Prefixes (the ablation tool, asy_vrnet_tpu_torch/tools/ablate_mixer_fwd.py;
+// it replaces the TPU tool tools/ablate_mixer_fwd.py:252).  The template
+// constant kStop cuts the body after a phase: gn (B's chunk loads: normalise,
+// round), centers (+ A), feat (+ B1, feat of every chunk), sim (+ B2: the
+// assignment, the winner's sigmoid, rs and cnt), agg (+ the split
+// aggregation and C's mixed centers), full (+ the fc2 fold, the cluster
+// swap, the dispatch and the moments: this kernel).  kNf takes the
+// normalise-first similarity of the TPU's folded kernel (featn, cosm: the M
+// cosines without the max, then sim, agg, full).  A cut prefix sums, in f32,
+// what its phases computed for the CTA's heads that no later phase of the
+// prefix reads (its checksum s, so that no phase's work is dead), writes
+// rnd(x + s) for the tokens the CTA dispatches (K2's output bytes) and stores
+// (s, sum of |terms|) in `part`.  Every prefix launches as K2 does (the same
+// shared-memory layout, block, cluster); the launcher pads a prefix's shared
+// memory if it would otherwise fit more CTAs on an SM than K2.
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -66,6 +82,9 @@ using asy::mix::kChunk;  // tokens per sweep-B chunk
 using asy::mix::kLanes;  // lanes per (token, head) in the assignment
 using asy::mix::kSplit;  // fixed token splits of the aggregation
 constexpr int kThreads = 256;
+
+// where a prefix stops (kCosm: the normalise-first variant only)
+constexpr int kGn = 0, kCenters = 1, kFeat = 2, kCosm = 3, kSim = 4, kAgg = 5, kFull = 6;
 
 struct Geo {
   int B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, N, ph, pw, M;
@@ -103,7 +122,7 @@ inline Smem smem_layout(const Geo& g) {
   return s;
 }
 
-template <typename T>
+template <typename T, int kStop = kFull, bool kNf = false>
 __global__ void __launch_bounds__(kThreads)
 mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                    const T* __restrict__ wf, const float* __restrict__ bf,
@@ -157,20 +176,34 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     return ((((size_t)b * (gridDim.x / G) + r) * heads + h) * M + m) * D + j % D;
   };
 
+  // a cut prefix's checksum and the sum of its terms' magnitudes (per thread)
+  constexpr int kCos = kNf ? kCosm : kSim;  // the first stop that reads cn
+  float chk = 0.f, mag = 0.f;
+  auto take = [&](float v) {
+    chk += v;
+    mag += fabsf(v);
+  };
+
   for (int e = tid; e < kSplit * hpc * M * C; e += kThreads) aggp[e] = 0.f;
   for (int e = tid; e < hpc * M; e += kThreads) rs[e] = cnt[e] = 0.f;
 
   // ---- A. centers: adaptive-average pool in input space, then project ----
   auto wf_col = [&](int c, int j) { return to_f<T>(wf[(size_t)c * I + col0 + j]); };
   auto wv_col = [&](int c, int j) { return to_f<T>(wv[(size_t)c * I + col0 + j]); };
-  asy::mix::project_centers<T>([&](int n, int c) { return norm_in(x[tok(n) + c]); },
-                               wf_col, wv_col, bf + col0, bv + col0, C, Dg, D, hpc, M,
-                               g.rh, g.rw, g.ph, g.pw, cin, cn, vc, invc);
-  if (crep_out != nullptr) {
-    for (int e = tid; e < M * Dg; e += kThreads)
-      crep_out[center(e / Dg, e % Dg)] = asy::from_f<T>(cn[e]);
+  if constexpr (kStop >= kCenters) {
+    asy::mix::project_centers<T>([&](int n, int c) { return norm_in(x[tok(n) + c]); },
+                                 wf_col, wv_col, bf + col0, bv + col0, C, Dg, D, hpc, M,
+                                 g.rh, g.rw, g.ph, g.pw, cin, cn, vc, invc);
+    if (crep_out != nullptr) {
+      for (int e = tid; e < M * Dg; e += kThreads)
+        crep_out[center(e / Dg, e % Dg)] = asy::from_f<T>(cn[e]);
+    }
+    asy::mix::normalise_centers<T>(cn, invc, cn, M, Dg, D, hpc);
+    if constexpr (kStop < kCos)
+      for (int e = tid; e < M * Dg; e += kThreads) take(cn[e]);
+    if constexpr (kStop < kAgg)
+      for (int e = tid; e < M * Dg; e += kThreads) take(vc[e]);
   }
-  asy::mix::normalise_centers<T>(cn, invc, cn, M, Dg, D, hpc);
 
   // ---- B. assign + aggregate, chunk by chunk ----
   const int sub = tid % kLanes;
@@ -181,143 +214,217 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       xs[e] = t < nt ? norm_in(x[tok(n0 + t) + c]) : 0.f;
     }
     __syncthreads();
-    asy::mix::feat_chunk<T>(xs, C, wf_col, bf + col0, Dg, DP, fs);
-    __syncthreads();
-    // per (token, head), kLanes lanes each: cosine to the M centers and the
-    // first-max assignment.  kChunk*hpc items is a multiple of the 32 items
-    // a pass covers, so every lane of a warp runs the same iterations.
-    for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
-      const int t = it % kChunk, hl = it / kChunk;
-      const asy::mix::Winner win =
-          asy::mix::assign<T>(fs + t * DP + hl * D, cn + hl * D, Dg, D, M, alpha, beta, sub);
-      if (sub == 0 && t < nt) {
-        sg[(n0 + t) * hpc + hl] = asy::mix::sigmoid(win.best);
-        asg[(n0 + t) * hpc + hl] = (unsigned char)win.arg;
-        if (cbest_out != nullptr)
-          cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(win.cos);
+    if constexpr (kStop < kFeat) {
+      for (int e = tid; e < nt * C; e += kThreads) take(xs[e]);
+    } else {
+      asy::mix::feat_chunk<T>(xs, C, wf_col, bf + col0, Dg, DP, fs);
+      __syncthreads();
+      if constexpr (kStop == kFeat && !kNf) {
+        for (int e = tid; e < nt * Dg; e += kThreads) take(fs[(e / Dg) * DP + e % Dg]);
+      } else {
+        // per (token, head), kLanes lanes each: cosine to the M centers and
+        // the first-max assignment.  kChunk*hpc items is a multiple of the 32
+        // items a pass covers, so every lane of a warp runs the same
+        // iterations.
+        for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
+          const int t = it % kChunk, hl = it / kChunk;
+          float* f = fs + t * DP + hl * D;
+          if constexpr (kNf) {
+            asy::mix::normalise_feat<T>(f, D, sub);
+            if constexpr (kStop == kFeat) {
+              if (t < nt)
+                for (int d = sub; d < D; d += kLanes) take(f[d]);
+              continue;
+            }
+            if constexpr (kStop == kCosm) {
+              for (int m = 0; m < M; ++m) {
+                const float cs = asy::mix::cos_nf(f, cn + m * Dg + hl * D, D, sub);
+                if (sub == 0 && t < nt) take(cs);
+              }
+              continue;
+            }
+          }
+          asy::mix::Winner win;
+          if constexpr (kNf)
+            win = asy::mix::assign_nf(f, cn + hl * D, Dg, D, M, alpha, beta, sub);
+          else
+            win = asy::mix::assign<T>(f, cn + hl * D, Dg, D, M, alpha, beta, sub);
+          if (sub == 0 && t < nt) {
+            sg[(n0 + t) * hpc + hl] = asy::mix::sigmoid(win.best);
+            asg[(n0 + t) * hpc + hl] = (unsigned char)win.arg;
+            if (cbest_out != nullptr)
+              cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(win.cos);
+          }
+        }
       }
-    }
-    __syncthreads();
-    // aggregate sim * xn per (head, center) in input space; split s takes
-    // the chunk's tokens t = s mod kSplit (a fixed, deterministic order)
-    for (int e = tid; e < kSplit * hpc * C; e += kThreads) {
-      const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
-      float* ap = aggp + (size_t)(s * hpc + hl) * M * C + c;
-      for (int t = s; t < nt; t += kSplit) {
-        const int q = (n0 + t) * hpc + hl;
-        ap[asg[q] * C] = fmaf(rnd<T>(sg[q]), xs[t * C + c], ap[asg[q] * C]);
-      }
-    }
-    for (int e = tid; e < hpc * M; e += kThreads) {
-      const int hl = e / M, m = e % M;
-      for (int t = 0; t < nt; ++t) {
-        const int q = (n0 + t) * hpc + hl;
-        if (asg[q] == m) {
-          rs[e] += sg[q];
-          cnt[e] += 1.f;
+      if constexpr (kStop >= kSim) {
+        __syncthreads();
+        // aggregate sim * xn per (head, center) in input space; split s
+        // takes the chunk's tokens t = s mod kSplit (a fixed, deterministic
+        // order)
+        if constexpr (kStop >= kAgg) {
+          for (int e = tid; e < kSplit * hpc * C; e += kThreads) {
+            const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
+            float* ap = aggp + (size_t)(s * hpc + hl) * M * C + c;
+            for (int t = s; t < nt; t += kSplit) {
+              const int q = (n0 + t) * hpc + hl;
+              ap[asg[q] * C] = fmaf(rnd<T>(sg[q]), xs[t * C + c], ap[asg[q] * C]);
+            }
+          }
+        }
+        for (int e = tid; e < hpc * M; e += kThreads) {
+          const int hl = e / M, m = e % M;
+          for (int t = 0; t < nt; ++t) {
+            const int q = (n0 + t) * hpc + hl;
+            if (asg[q] == m) {
+              rs[e] += sg[q];
+              cnt[e] += 1.f;
+            }
+          }
         }
       }
     }
     __syncthreads();
   }
+  if constexpr (kStop == kSim) {
+    for (int e = tid; e < hpc * M; e += kThreads) {
+      take(rs[e]);
+      take((float)(e % M) * cnt[e]);
+    }
+  }
 
   // ---- C. finish the CTA's centers, fold fc2 in ----
-  for (int e = tid; e < hpc * M * C; e += kThreads) {  // sum the splits, round
-    float a = 0.f;
-    for (int s = 0; s < kSplit; ++s) a += aggp[(size_t)s * hpc * M * C + e];
-    aggp[e] = rnd<T>(a);
-  }
-  __syncthreads();
   float* oc = fs;  // [M][Dg]
-  for (int e = tid; e < M * Dg; e += kThreads) {
-    const int m = e / Dg, j = e % Dg, hm = (j / D) * M + m;
-    oc[e] = asy::mix::mixed_center<T>(aggp + hm * C, [&](int c) { return wv_col(c, j); }, C,
-                                      rs[hm], bv[col0 + j], vc[e], cnt[hm]);
-    if (oc_out != nullptr) oc_out[center(m, j)] = asy::from_f<T>(oc[e]);
-  }
-  __syncthreads();
-  for (int e = tid; e < hpc * M * C; e += kThreads) {
-    const int c = e % C, hm = e / C, hl = hm / M, m = hm % M;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d)
-      acc = fmaf(oc[m * Dg + hl * D + d],
-                 to_f<T>(w2[(size_t)(col0 + hl * D + d) * C + c]), acc);
-    ocw_own[e] = rnd<T>(acc);
-  }
-  if (assign_out != nullptr) {
-    for (int e = tid; e < N * hpc; e += kThreads)
-      assign_out[tok(e / hpc) / C * heads + rank * hpc + e % hpc] = (int8_t)asg[e];
-  }
-
-  // ---- swap centers and assignments across the cluster, then dispatch ----
-  // (a cluster of one CTA already holds everything in the dispatch layout)
-  const int n_lo = rank * g.nper;
-  const int nd = max(0, min(N, n_lo + g.nper) - n_lo);
-  const float* ocw_d = ocw_own;      // [heads][M][C]
-  const float* sg_d = sg;            // [nd][heads]
-  const unsigned char* asg_d = asg;  // [nd][heads]
-  if (G > 1) {
-    cluster.sync();
-    for (int e = tid; e < heads * M * C; e += kThreads) {
-      const int h = e / (M * C);
-      const float* peer = cluster.map_shared_rank(ocw_own, h / hpc);
-      ocw_all[e] = peer[(h % hpc) * M * C + e % (M * C)];
+  if constexpr (kStop >= kAgg) {
+    for (int e = tid; e < hpc * M * C; e += kThreads) {  // sum the splits, round
+      float a = 0.f;
+      for (int s = 0; s < kSplit; ++s) a += aggp[(size_t)s * hpc * M * C + e];
+      aggp[e] = rnd<T>(a);
     }
-    for (int e = tid; e < nd * heads; e += kThreads) {
-      const int n = n_lo + e / heads, h = e % heads, p = h / hpc;
-      sg_all[e] = cluster.map_shared_rank(sg, p)[n * hpc + h % hpc];
-      asg_all[e] = cluster.map_shared_rank(asg, p)[n * hpc + h % hpc];
-    }
-    cluster.sync();  // no CTA leaves while a peer may still read its memory
-    ocw_d = ocw_all;
-    sg_d = sg_all;
-    asg_d = asg_all;
-  } else {
     __syncthreads();
-  }
-  float s1 = 0.f, s2 = 0.f;
-  for (int e = tid; e < nd * C; e += kThreads) {
-    const int nl = e / C, c = e % C;
-    float y = 0.f;
-    for (int h = 0; h < heads; ++h) {
-      const int q = nl * heads + h;
-      y = fmaf(rnd<T>(sg_d[q]), ocw_d[(h * M + asg_d[q]) * C + c], y);
+    for (int e = tid; e < M * Dg; e += kThreads) {
+      const int m = e / Dg, j = e % Dg, hm = (j / D) * M + m;
+      oc[e] = asy::mix::mixed_center<T>(aggp + hm * C, [&](int c) { return wv_col(c, j); }, C,
+                                        rs[hm], bv[col0 + j], vc[e], cnt[hm]);
+      if (oc_out != nullptr) oc_out[center(m, j)] = asy::from_f<T>(oc[e]);
     }
-    const size_t o = tok(n_lo + nl) + c;
-    const T v = asy::from_f<T>(to_f<T>(x[o]) + (y + b2[c]));
-    out[o] = v;
-    const float vf = to_f<T>(v);
-    s1 += vf;
-    s2 = fmaf(vf, vf, s2);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    s1 += __shfl_down_sync(0xffffffffu, s1, off);
-    s2 += __shfl_down_sync(0xffffffffu, s2, off);
+    __syncthreads();
+    if constexpr (kStop == kAgg)
+      for (int e = tid; e < M * Dg; e += kThreads) take(oc[e]);
   }
   const int warps = kThreads / 32;
-  if ((tid & 31) == 0) {
-    red[tid >> 5] = s1;
-    red[warps + (tid >> 5)] = s2;
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float a = 0.f, q = 0.f;
-    for (int w = 0; w < warps; ++w) {
-      a += red[w];
-      q += red[warps + w];
+  const int n_lo = rank * g.nper;  // the CTA's dispatch tokens
+  const int nd = max(0, min(N, n_lo + g.nper) - n_lo);
+  if constexpr (kStop < kFull) {
+    // the cut prefix's output: rnd(x + s) for the tokens the CTA dispatches
+    for (int off = 16; off > 0; off >>= 1) {
+      chk += __shfl_down_sync(0xffffffffu, chk, off);
+      mag += __shfl_down_sync(0xffffffffu, mag, off);
     }
-    const size_t p = ((size_t)b * gridDim.x + blockIdx.x) * 2;
-    part[p] = a;
-    part[p + 1] = q;
+    if ((tid & 31) == 0) {
+      red[tid >> 5] = chk;
+      red[warps + (tid >> 5)] = mag;
+    }
+    __syncthreads();
+    float s = 0.f, sa = 0.f;
+    for (int w = 0; w < warps; ++w) {
+      s += red[w];
+      sa += red[warps + w];
+    }
+    for (int e = tid; e < nd * C; e += kThreads) {
+      const size_t o = tok(n_lo + e / C) + e % C;
+      out[o] = asy::from_f<T>(to_f<T>(x[o]) + s);
+    }
+    if (tid == 0) {
+      const size_t p = ((size_t)b * gridDim.x + blockIdx.x) * 2;
+      part[p] = s;
+      part[p + 1] = sa;
+    }
+  } else {
+    for (int e = tid; e < hpc * M * C; e += kThreads) {
+      const int c = e % C, hm = e / C, hl = hm / M, m = hm % M;
+      float acc = 0.f;
+      for (int d = 0; d < D; ++d)
+        acc = fmaf(oc[m * Dg + hl * D + d],
+                   to_f<T>(w2[(size_t)(col0 + hl * D + d) * C + c]), acc);
+      ocw_own[e] = rnd<T>(acc);
+    }
+    if (assign_out != nullptr) {
+      for (int e = tid; e < N * hpc; e += kThreads)
+        assign_out[tok(e / hpc) / C * heads + rank * hpc + e % hpc] = (int8_t)asg[e];
+    }
+
+    // ---- swap centers and assignments across the cluster, then dispatch ----
+    // (a cluster of one CTA already holds everything in the dispatch layout)
+    const float* ocw_d = ocw_own;      // [heads][M][C]
+    const float* sg_d = sg;            // [nd][heads]
+    const unsigned char* asg_d = asg;  // [nd][heads]
+    if (G > 1) {
+      cluster.sync();
+      for (int e = tid; e < heads * M * C; e += kThreads) {
+        const int h = e / (M * C);
+        const float* peer = cluster.map_shared_rank(ocw_own, h / hpc);
+        ocw_all[e] = peer[(h % hpc) * M * C + e % (M * C)];
+      }
+      for (int e = tid; e < nd * heads; e += kThreads) {
+        const int n = n_lo + e / heads, h = e % heads, p = h / hpc;
+        sg_all[e] = cluster.map_shared_rank(sg, p)[n * hpc + h % hpc];
+        asg_all[e] = cluster.map_shared_rank(asg, p)[n * hpc + h % hpc];
+      }
+      cluster.sync();  // no CTA leaves while a peer may still read its memory
+      ocw_d = ocw_all;
+      sg_d = sg_all;
+      asg_d = asg_all;
+    } else {
+      __syncthreads();
+    }
+    float s1 = 0.f, s2 = 0.f;
+    for (int e = tid; e < nd * C; e += kThreads) {
+      const int nl = e / C, c = e % C;
+      float y = 0.f;
+      for (int h = 0; h < heads; ++h) {
+        const int q = nl * heads + h;
+        y = fmaf(rnd<T>(sg_d[q]), ocw_d[(h * M + asg_d[q]) * C + c], y);
+      }
+      const size_t o = tok(n_lo + nl) + c;
+      const T v = asy::from_f<T>(to_f<T>(x[o]) + (y + b2[c]));
+      out[o] = v;
+      const float vf = to_f<T>(v);
+      s1 += vf;
+      s2 = fmaf(vf, vf, s2);
+    }
+    for (int off = 16; off > 0; off >>= 1) {
+      s1 += __shfl_down_sync(0xffffffffu, s1, off);
+      s2 += __shfl_down_sync(0xffffffffu, s2, off);
+    }
+    if ((tid & 31) == 0) {
+      red[tid >> 5] = s1;
+      red[warps + (tid >> 5)] = s2;
+    }
+    __syncthreads();
+    if (tid == 0) {
+      float a = 0.f, q = 0.f;
+      for (int w = 0; w < warps; ++w) {
+        a += red[w];
+        q += red[warps + w];
+      }
+      const size_t p = ((size_t)b * gridDim.x + blockIdx.x) * 2;
+      part[p] = a;
+      part[p + 1] = q;
+    }
   }
 }
 
-template <typename T>
+// Launches K2 (kStop = kFull, base) or one of its prefixes.  `occupancy`
+// (the ablation: 2 ints, the prefix's CTAs per SM as launched and K2's) is
+// null for K2 itself; for a prefix, the dynamic shared memory is padded until
+// an SM holds no more of its CTAs than of K2's.
+template <typename T, int kStop, bool kNf>
 int launch(const void* x, const float* stats, const void* wf, const float* bf,
            const void* wv, const float* bv, const void* w2, const float* b2,
            const float* ab, void* out, float* part, int8_t* assign, void* cbest,
            void* crep, void* oc, int B, int H, int W, int C, int I, int heads,
-           int fold_h, int fold_w, int ph, int pw, int G, void* stream) {
+           int fold_h, int fold_w, int ph, int pw, int G, int* occupancy, void* stream) {
   if (B <= 0 || C % 4 || heads <= 0 || I % heads || fold_h <= 0 || fold_w <= 0 ||
       H % fold_h || W % fold_w || ph <= 0 || pw <= 0 || ph * pw > 255 || G <= 0 ||
       G > 8 || heads % G)
@@ -327,12 +434,32 @@ int launch(const void* x, const float* stats, const void* wf, const float* bf,
         G, heads / G, (n + G - 1) / G};
   if (rh < ph || rw < pw) return (int)cudaErrorInvalidValue;
   const Smem L = smem_layout(g);
-  cudaError_t e = asy::set_smem(mixer_block_kernel<T>, L.bytes);
+  const auto kernel = mixer_block_kernel<T, kStop, kNf>;
+  size_t bytes = L.bytes;
+  cudaError_t e = asy::set_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
+  if (occupancy != nullptr) {
+    const auto k2 = mixer_block_kernel<T, kFull, false>;
+    int full = 0, mine = 0;
+    e = asy::set_smem(k2, L.bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&full, k2, kThreads, L.bytes);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&mine, kernel, kThreads, bytes);
+    while (e == cudaSuccess && mine > full) {
+      bytes += 1024;
+      e = asy::set_smem(kernel, bytes);
+      if (e == cudaSuccess)
+        e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&mine, kernel, kThreads, bytes);
+    }
+    if (e != cudaSuccess) return (int)e;
+    occupancy[0] = mine;
+    occupancy[1] = full;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(fold_h * fold_w * G, B, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);
-  cfg.dynamicSmemBytes = L.bytes;
+  cfg.dynamicSmemBytes = bytes;
   cfg.stream = (cudaStream_t)stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
@@ -341,11 +468,48 @@ int launch(const void* x, const float* stats, const void* wf, const float* bf,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = G > 1;  // a single-CTA "cluster" launches as a plain grid
-  e = cudaLaunchKernelEx(&cfg, mixer_block_kernel<T>, (const T*)x, stats,
-                         (const T*)wf, bf, (const T*)wv, bv, (const T*)w2, b2, ab,
-                         (T*)out, part, assign, (T*)cbest, (T*)crep, (T*)oc, g, L);
+  e = cudaLaunchKernelEx(&cfg, kernel, (const T*)x, stats, (const T*)wf, bf, (const T*)wv,
+                         bv, (const T*)w2, b2, ab, (T*)out, part, assign, (T*)cbest,
+                         (T*)crep, (T*)oc, g, L);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// One prefix (`stop`, a k* constant; `nf` the normalise-first variant) on
+// eval inputs: no residual pack; `assign` (may be null) receives the
+// assignment from the full prefixes only.
+template <typename T>
+int launch_prefix(const void* x, const float* stats, const void* wf, const float* bf,
+                  const void* wv, const float* bv, const void* w2, const float* b2,
+                  const float* ab, void* out, float* part, int8_t* assign, int B, int H,
+                  int W, int C,
+                  int I, int heads, int fold_h, int fold_w, int ph, int pw, int G,
+                  int stop, int nf, int* occupancy, void* stream) {
+#define ASY_PREFIX(S, NF)                                                                  \
+  launch<T, S, NF>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign, nullptr,      \
+                   nullptr, nullptr, B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G,     \
+                   occupancy, stream)
+  if (occupancy == nullptr) return (int)cudaErrorInvalidValue;
+  if (!nf) {
+    switch (stop) {
+      case kGn: return ASY_PREFIX(kGn, false);
+      case kCenters: return ASY_PREFIX(kCenters, false);
+      case kFeat: return ASY_PREFIX(kFeat, false);
+      case kSim: return ASY_PREFIX(kSim, false);
+      case kAgg: return ASY_PREFIX(kAgg, false);
+      case kFull: return ASY_PREFIX(kFull, false);
+    }
+  } else {
+    switch (stop) {
+      case kFeat: return ASY_PREFIX(kFeat, true);
+      case kCosm: return ASY_PREFIX(kCosm, true);
+      case kSim: return ASY_PREFIX(kSim, true);
+      case kAgg: return ASY_PREFIX(kAgg, true);
+      case kFull: return ASY_PREFIX(kFull, true);
+    }
+  }
+#undef ASY_PREFIX
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -359,9 +523,10 @@ int mixer_block_bf16(const void* x, const float* stats, const void* wf,
                      float* part, int8_t* assign, void* cbest, void* crep, void* oc,
                      int B, int H, int W, int C, int I, int heads, int fold_h,
                      int fold_w, int ph, int pw, int G, void* stream) {
-  return launch<__nv_bfloat16>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part,
-                               assign, cbest, crep, oc, B, H, W, C, I, heads,
-                               fold_h, fold_w, ph, pw, G, stream);
+  return launch<__nv_bfloat16, kFull, false>(x, stats, wf, bf, wv, bv, w2, b2, ab, out,
+                                             part, assign, cbest, crep, oc, B, H, W, C, I,
+                                             heads, fold_h, fold_w, ph, pw, G, nullptr,
+                                             stream);
 }
 
 int mixer_block_f32(const void* x, const float* stats, const void* wf,
@@ -370,9 +535,35 @@ int mixer_block_f32(const void* x, const float* stats, const void* wf,
                     float* part, int8_t* assign, void* cbest, void* crep, void* oc,
                     int B, int H, int W, int C, int I, int heads, int fold_h,
                     int fold_w, int ph, int pw, int G, void* stream) {
-  return launch<float>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign,
-                       cbest, crep, oc, B, H, W, C, I, heads, fold_h, fold_w, ph,
-                       pw, G, stream);
+  return launch<float, kFull, false>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part,
+                                     assign, cbest, crep, oc, B, H, W, C, I, heads, fold_h,
+                                     fold_w, ph, pw, G, nullptr, stream);
+}
+
+// The ablation's prefixes; `occupancy` receives (this launch's CTAs per SM,
+// K2's), `assign` (may be null) the assignment of a full prefix.  stop: 0
+// gn, 1 centers, 2 feat (featn with nf), 3 cosm (nf only), 4 sim, 5 agg,
+// 6 full (with nf = 0: K2 itself).
+int mixer_block_ablate_bf16(const void* x, const float* stats, const void* wf,
+                            const float* bf, const void* wv, const float* bv,
+                            const void* w2, const float* b2, const float* ab, void* out,
+                            float* part, int8_t* assign, int B, int H, int W, int C,
+                            int I, int heads, int fold_h, int fold_w, int ph, int pw, int G,
+                            int stop, int nf, int* occupancy, void* stream) {
+  return launch_prefix<__nv_bfloat16>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign,
+                                      B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, stop,
+                                      nf, occupancy, stream);
+}
+
+int mixer_block_ablate_f32(const void* x, const float* stats, const void* wf,
+                           const float* bf, const void* wv, const float* bv,
+                           const void* w2, const float* b2, const float* ab, void* out,
+                           float* part, int8_t* assign, int B, int H, int W, int C,
+                           int I, int heads, int fold_h, int fold_w, int ph, int pw, int G,
+                           int stop, int nf, int* occupancy, void* stream) {
+  return launch_prefix<float>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign, B, H,
+                              W, C, I, heads, fold_h, fold_w, ph, pw, G, stop, nf, occupancy,
+                              stream);
 }
 
 }  // extern "C"

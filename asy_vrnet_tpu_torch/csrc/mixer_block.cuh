@@ -155,6 +155,38 @@ __device__ __forceinline__ Winner assign(const float* f, const float* cn, int Dg
   return w;
 }
 
+// The normalise-first similarity of the TPU's folded forward
+// (block_pallas.py:369-392), which only the ablation tool runs: each
+// (token, head) feat row is scaled by its rounded inverse norm and rounded
+// (featn), and a cosine is then the plain product cn . featn.  All kLanes
+// lanes of the item call these; each lane writes and reads only its own
+// columns d = sub (mod kLanes).
+template <typename T>
+__device__ __forceinline__ void normalise_feat(float* f, int D, int sub) {
+  const float inv = rnd<T>(rsqrtf(__fadd_rn(head_norm2<T>(f, D, sub), 1e-12f)));
+  for (int d = sub; d < D; d += kLanes) f[d] = rnd<T>(__fmul_rn(f[d], inv));
+}
+
+// cn_m . featn over the lanes (every lane gets the total)
+__device__ __forceinline__ float cos_nf(const float* fn, const float* cm, int D, int sub) {
+  float cs = 0.f;
+  for (int d = sub; d < D; d += kLanes) cs = __fmaf_rn(cm[d], fn[d], cs);
+  return lane_sum(cs);
+}
+
+// B2 on a normalised row fn: first max on beta + alpha * cos, as `assign`
+// (raw is the cosine itself: there is no separate inverse norm)
+__device__ __forceinline__ Winner assign_nf(const float* fn, const float* cn, int Dg, int D,
+                                            int M, float alpha, float beta, int sub) {
+  Winner w{0, 0.f, 0.f, 0.f};
+  for (int m = 0; m < M; ++m) {
+    const float cs = cos_nf(fn, cn + m * Dg, D, sub);
+    const float lg = __fmaf_rn(alpha, cs, beta);
+    if (m == 0 || lg > w.best) w = Winner{m, lg, cs, cs};
+  }
+  return w;
+}
+
 // C. One mixed center (agg + v_c) / (count + 1), agg = aggx . wv + rs * bv,
 // rounded: aggx (C values, rounded to the working type as they are read),
 // `vcol(c)` the fc_v column.

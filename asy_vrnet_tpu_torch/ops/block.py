@@ -214,7 +214,7 @@ def _from_regions(t, hw, fold_h, fold_w):
 
 
 def _mixer_planes(x, stats, wf, bf, wv, bv, alpha_beta, *, heads, fold_h, fold_w,
-                  proposal_h, proposal_w, assign=None):
+                  proposal_h, proposal_w, assign=None, normalise_first=False):
     """The mixer half's forward interior in the TPU kernel's own formulation
     (`_mixer_block_fwd_body`): centers pooled in input space and projected,
     first-max assignment on the pre-sigmoid logit, aggregation in input
@@ -222,8 +222,11 @@ def _mixer_planes(x, stats, wf, bf, wv, bv, alpha_beta, *, heads, fold_h, fold_w
     to its matrix-unit dtype.  Region layout: tokens (B, R, N, ...), centers
     (B, R, heads, M, ...).  `assign` (B, H, W, heads), if given, replaces the
     first max (a test feeds a kernel's own assignment, as near-ties in bf16
-    can fall either way).  Returns a namespace of the planes the forward and
-    the remat backward read."""
+    can fall either way).  `normalise_first` takes the similarity of the
+    TPU's folded kernel (`_mixer_block_fwd_body_folded`), which only the
+    ablation tool runs: featn = rnd(feat * rnd(inv)) per head, cos = rnd(cn)
+    . featn (then `raw` is None).  Returns a namespace of the planes the
+    forward and the remat backward read."""
     dt = x.dtype
     rnd = lambda t: _round(t, dt)  # noqa: E731
     b, h, w, c = x.shape
@@ -245,8 +248,14 @@ def _mixer_planes(x, stats, wf, bf, wv, bv, alpha_beta, *, heads, fold_h, fold_w
     featb = rnd(feat)
     inv = torch.rsqrt(rnd(feat * feat).sum(-1) + 1e-12)   # (B,R,N,h)
     invr = rnd(inv)
-    raw = torch.einsum("brhmd,brnhd->brnhm", rnd(c_rep * inv_c), featb)
-    cos = raw * invr[..., None]
+    cnb = rnd(c_rep * inv_c)
+    if normalise_first:
+        featn = rnd(feat * invr[..., None])
+        raw, cos = None, torch.einsum("brhmd,brnhd->brnhm", cnb, featn)
+    else:
+        featn = None
+        raw = torch.einsum("brhmd,brnhd->brnhm", cnb, featb)
+        cos = raw * invr[..., None]
     logit = beta + alpha * cos
     arg = logit.argmax(-1) if assign is None else _regions(assign, fold_h, fold_w)[0].long()
     pick = lambda t: t.gather(-1, arg[..., None])[..., 0]  # noqa: E731
@@ -260,18 +269,31 @@ def _mixer_planes(x, stats, wf, bf, wv, bv, alpha_beta, *, heads, fold_h, fold_w
            + rs[..., None] * bv.reshape(heads, 1, d))
     return SimpleNamespace(
         xn=xn, xnb=xnb, region_hw=region_hw, pool=pool, cinb=cinb, c_rep=c_rep,
-        inv_c=inv_c, feat=feat, featb=featb, inv=inv, invr=invr, arg=arg,
-        cbest=pick(cos), raw=pick(raw), sgb=sgb, mask=mask, simb=simb, rs=rs, icnt=icnt,
-        aggx=aggx, oc=(agg + vc) * icnt[..., None])
+        inv_c=inv_c, cnb=cnb, vc=vc, feat=feat, featb=featb, featn=featn, inv=inv,
+        invr=invr, cos=cos, arg=arg, cbest=pick(cos), raw=None if raw is None else pick(raw),
+        sgb=sgb, mask=mask, simb=simb, rs=rs, icnt=icnt, aggx=aggx,
+        oc=(agg + vc) * icnt[..., None])
+
+
+def _mixer_out(x, p, w2, b2, heads, fold_h, fold_w):
+    """The dispatch after `_mixer_planes`: (out NHWC in x.dtype, the rounded
+    mixed centers)."""
+    dt = x.dtype
+    c = x.shape[-1]
+    d = w2.shape[0] // heads
+    oc = _round(p.oc, dt)
+    ocw = _round(torch.einsum("brhmd,hdc->brhmc", oc, w2.float().reshape(heads, d, c)), dt)
+    y = torch.einsum("brnhm,brhmc->brnc", p.simb, ocw) + b2
+    return (x.float() + _from_regions(y, p.region_hw, fold_h, fold_w)).to(dt), oc
 
 
 def mixer_block_plain(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
                       fold_h, fold_w, proposal_h, proposal_w,
                       return_assign=False, return_residuals=False):
     """Plain mixer half on folded weights (`_mixer_planes`, then the dispatch
-    of the fc2-projected centers).  Returns (out, moments (B,2) [sum, sum sq]
-    of the stored output) [, assignments (B, heads, H, W) int64] [, residual
-    pack].
+    of the fc2-projected centers, `_mixer_out`).  Returns (out, moments (B,2)
+    [sum, sum sq] of the stored output) [, assignments (B, heads, H, W)
+    int64] [, residual pack].
 
     The residual pack (training) is what `mixer_block_bwd` consumes:
     (cbest (B,H,W,heads) x.dtype, the winning cosine per (token, head);
@@ -284,13 +306,10 @@ def mixer_block_plain(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
     geo = dict(heads=heads, fold_h=fold_h, fold_w=fold_w, proposal_h=proposal_h,
                proposal_w=proposal_w)
     p = _mixer_planes(x, stats, wf, bf, wv, bv, alpha_beta, **geo)
-    b, c = x.shape[0], x.shape[-1]
+    b = x.shape[0]
     d = wf.shape[1] // heads
-    oc = _round(p.oc, dt)
-    ocw = _round(torch.einsum("brhmd,hdc->brhmc", oc, w2.float().reshape(heads, d, c)), dt)
-    y = torch.einsum("brnhm,brhmc->brnc", p.simb, ocw) + b2
+    out, oc = _mixer_out(x, p, w2, b2, heads, fold_h, fold_w)
     nhwc = lambda t: _from_regions(t, p.region_hw, fold_h, fold_w)  # noqa: E731
-    out = (x.float() + nhwc(y)).to(dt)
     ob = out.float()
     moments = torch.stack([ob.sum(dim=(1, 2, 3)), (ob * ob).sum(dim=(1, 2, 3))], -1)
     if return_residuals:

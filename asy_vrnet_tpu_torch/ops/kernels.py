@@ -1,6 +1,7 @@
 """Build, load and launch the CUDA kernels in `asy_vrnet_tpu_torch/csrc/`.
 
-Nine sources: the two fused ClusterBlock halves (mixer_block, mlp_block) and
+Nine sources: the two fused ClusterBlock halves (mixer_block, with the
+prefixes of its body that the ablation tool times; mlp_block) and
 their backward passes (mixer_block_bwd, with both bodies K6 and K6r;
 mlp_block_bwd), K1 and K5 with their z1 variants, the stand-alone
 cluster mix and its backward (cluster_mix, cluster_mix_bwd), the fused
@@ -62,7 +63,9 @@ _SIGS = {
 # element types each source is instantiated for (entry = "<source>_<suffix>")
 _SUFFIXES = {"simota_assign": ("f32",)}
 # further entries of a library: name -> (argument types, result type)
-_EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 7, _I)}}
+_EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 7, _I)},
+          "mixer_block": {f"mixer_block_ablate_{t}": ([_P] * 12 + [_I] * 13 + [_P] * 2, _I)
+                          for t in ("bf16", "f32")}}
 
 
 def _nvcc() -> str:
@@ -144,15 +147,17 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _call(name: str, x: torch.Tensor, *args) -> None:
+def _call(name: str, x: torch.Tensor, *args, entry: str | None = None) -> None:
+    """Launch `<entry>_<bf16|f32>` (entry defaults to the source's name) of
+    library `name` on x's device and current stream; raises on an error."""
     lib = load(name)
-    fn = getattr(lib, f"{name}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}")
+    fn = getattr(lib, f"{entry or name}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(*args, stream)
     if err:
         msg = lib.asy_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name} kernel launch failed: {msg} (code {err})")
+        raise RuntimeError(f"{entry or name} kernel launch failed: {msg} (code {err})")
 
 
 def mixer_cluster_size(heads: int, regions: int, device: torch.device,
@@ -180,6 +185,22 @@ def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, assign,
           _ptr(assign), _ptr(cbest), _ptr(crep), _ptr(oc), b, h, w, c, wf.shape[1],
           heads, fold_h, fold_w, proposal_h, proposal_w,
           part.shape[1] // (fold_h * fold_w))
+
+
+def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, assign,
+                       occupancy, *, heads, fold_h, fold_w, proposal_h, proposal_w, groups,
+                       stop, nf) -> None:
+    """Launch one prefix of the mixer-half kernel (`stop` a code of
+    ops/mixer_ablate.py, `nf` the normalise-first variant); tensors are
+    checked by the caller.  `part` is (B, fold_h * fold_w * groups, 2) f32;
+    `assign` (int8, may be None) receives a full prefix's assignment;
+    `occupancy` a 2-int32 host tensor that receives (the prefix's CTAs per SM
+    as launched, K2's)."""
+    b, h, w, c = x.shape
+    _call("mixer_block", x, _ptr(x), _ptr(stats), _ptr(wf), _ptr(bf), _ptr(wv), _ptr(bv),
+          _ptr(w2), _ptr(b2), _ptr(alpha_beta), _ptr(out), _ptr(part), _ptr(assign), b, h,
+          w, c, wf.shape[1], heads, fold_h, fold_w, proposal_h, proposal_w, groups, stop,
+          int(nf), _ptr(occupancy), entry="mixer_block_ablate")
 
 
 # tokens per block of the MLP backward.  Tensor-core path (bf16, C % 16 == 0,

@@ -84,7 +84,23 @@ Phases (each raises on failure; nothing is caught):
      step time, images/s, peak memory (absolute, and above what was held
      before the first step), device-busy share, launches per step and device
      ms by category for the fused, the module-path, the stochastic-depth and
-     the memory-setting steps.
+     the memory-setting steps;
+ 14. K2f-ablate, the prefixes of K2 (ops/mixer_ablate.py, the profiling
+     tool's kernel; no serving or train path launched one): at the 7 block
+     shapes, batch 8, f32 and bf16, and at the TPU tool's geometry (stage 0,
+     batch 64, bf16) base `full` equals K2 bit for bit (output, moments,
+     assignment), nf `full` is held against its twin fed its own
+     assignment, and every cut prefix wrote rnd(x + s) with its checksum s,
+     which is held with its magnitude against the twin's (fed K2's or the nf
+     assignment); two runs give equal bits; the nf-vs-base numerics; per
+     prefix the kernel's and the twin's time, the bound and the CTAs per SM
+     beside K2's; the base prefixes and K2 with its residual pack at the
+     train batch; the attribution of K2's time per batch-8 forward and per
+     fused train step to its phases (each prefix's Delta ms x calls, summed
+     over the 7 shapes).  Then the tool's own path
+     (`python -m asy_vrnet_tpu_torch.tools.ablate_mixer_fwd`, its defaults)
+     with the launch count reset before and read after: every prefix timed
+     by the profiler trace and by CUDA events.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -131,6 +147,11 @@ Tolerances:
     every output within 1e-4 * max(1, max |ref|); bf16: d feat and d value
     within 2 bf16 ulps of max |ref|, the summed d alpha and d beta within
     2% of max |ref|).
+  K2's prefixes vs their twins: a cut prefix's checksum and its sum of
+    |terms| within 1e-5 (f32) or 1e-3 (bf16) of the twin's sum of |terms|,
+    per CTA: the twin is fed the kernel's assignment, so only the order of
+    the f32 sums and a rounding that lands on the other side differ; nf
+    `full` as the mixer half above.
   train step, kernels vs plain twins: loss, loss_det, loss_seg within 2%
     relative, num_fg within 1% or one anchor, whichever is more: the
     kernels' and the twins' bf16 forwards differ in the last place here and
@@ -148,15 +169,19 @@ counted; the z1 variants add the z1 plane's bytes), K6 6*C*I per token
 those plus the forward remat's 2*C*I + 2*I*(M+1) and no pack;
 K7 and K7b count their code's arithmetic
 (`cluster_mix_bounds`) and 3 (K7) or 5 (K7b) tensors of B*H*W*I bf16 values.
-No single PyTorch call computes any of the twelve kernels: library_ms is null.
+No single PyTorch call computes any of the thirteen kernels: library_ms is
+null.  The prefixes' bounds are `tools/ablate_mixer_fwd.py::prefix_bounds`
+(its `full` is K2's bound).
 """
 import contextlib
 import copy
 import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 PEAK_FLOPS = 989e12     # H100 SXM dense bf16 tensor-core rate
@@ -209,6 +234,9 @@ CLUSTER_KERNELS = {
     "cluster_mix_bwd": dict(source="asy_vrnet_tpu_torch/csrc/cluster_mix_bwd.cu",
                             replaces="asy_vrnet_tpu/ops/cluster_pallas.py:448"),
 }
+# K2f-ablate: the prefixes of K2 that the profiling tool times
+ABLATE_KERNEL = dict(source="asy_vrnet_tpu_torch/csrc/mixer_block.cu",
+                     replaces="tools/ablate_mixer_fwd.py:252")
 # the stand-alone cluster mix at the stochastic-depth train step (nano
 # coc_small 512^2, batch 16): (name, B, H, W, inner width I, heads, fold,
 # calls per step: the backbone blocks past stage 0's first, 2 streams)
@@ -230,21 +258,6 @@ def check(ok, what):
     """A failed check raises (asserts would vanish under python -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
-
-
-def cuda_ms(fn, iters, warmup=3):
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    e0 = torch.cuda.Event(enable_timing=True)
-    e1 = torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for _ in range(iters):
-        fn()
-    e1.record()
-    torch.cuda.synchronize()
-    return e0.elapsed_time(e1) / iters
 
 
 def mixer_bounds(b, h, w, c, heads, d, fold):
@@ -372,65 +385,10 @@ def iou(a, b):
     return inter / ((a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter)
 
 
-CATEGORIES = (
-    ("cluster_mix_bwd (ours)", ("cluster_mix_bwd",)),
-    ("mixer_block_bwd_remat (ours)", ("mixer_bwd_kernel<__nv_bfloat16, true>",
-                                      "mixer_bwd_kernel<float, true>")),
-    ("cluster_mix (ours)", ("cluster_mix",)),
-    ("mixer_block_bwd (ours)", ("mixer_bwd",)),
-    ("mlp_block_bwd (ours)", ("mlp_block_bwd",)),
-    ("mixer_block (ours)", ("mixer_block",)),
-    ("mlp_block (ours)", ("mlp_block",)),
-    ("seg_loss (ours)", ("seg_loss",)),
-    ("simota (ours)", ("simota",)),
-    ("optimiser / EMA", ("multi_tensor", "foreach")),
-    ("convolution", ("conv", "xmma", "cudnn", "implicit", "wgrad", "dgrad", "sm90_")),
-    ("gemm", ("gemm", "cutlass")),
-    ("resize", ("upsample", "interpolat")),
-    ("reduction", ("reduce", "norm")),
-    ("copy / layout", ("copy", "cat", "transpose", "permute", "index", "gather")),
-)
-
-
-def profile_calls(fn, reps=3):
-    """torch.profiler over `reps` calls of fn(): host wall time, device busy
-    time, device time by category and the top kernels (per call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            t, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (t + e.device_time_total / 1e3 / reps, n + 1)
-    device = sum(t for t, _ in kernels.values())
-    cats = {c: 0.0 for c, _ in CATEGORIES}
-    cats["other elementwise"] = 0.0
-    for name, (t, _) in kernels.items():
-        low = name.lower()
-        for c, keys in CATEGORIES:
-            if any(k in low for k in keys):
-                cats[c] += t
-                break
-        else:
-            cats["other elementwise"] += t
-    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "launches": sum(n for _, n in kernels.values()) // reps,
-            "by_category_ms": cats,
-            "top": [(name[:90], t, n // reps) for name, (t, n) in top]}
-
-
 def profile_forward(model, image, radar, reps=3):
     import torch
+
+    from asy_vrnet_tpu_torch.utils.profiling import profile_calls
 
     with torch.no_grad():
         return profile_calls(lambda: model(image, radar), reps)
@@ -506,6 +464,7 @@ def check_cluster_mix(dev):
     import torch
 
     from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
 
     stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "plain_ms": 0.0,
                  "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0} for k in CLUSTER_KERNELS}
@@ -624,6 +583,7 @@ def check_remat_z1(dev):
     import torch
 
     from asy_vrnet_tpu_torch.ops import block
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
 
     names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
     stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "plain_ms": 0.0,
@@ -737,6 +697,179 @@ def check_remat_z1(dev):
     return stats
 
 
+def check_ablation(dev):
+    """K2f-ablate: the prefixes of K2 (ops/mixer_ablate.py) against their
+    twins at the 7 block shapes with batch 8, f32 and bf16, and at the TPU
+    tool's geometry (stage 0, batch 64, bf16).  Per shape and dtype: K2 with
+    its assignment; base `full` equals K2 bit for bit (output, moments,
+    assignment); nf `full` against its twin fed the nf assignment; every cut
+    prefix wrote rnd(x + s) with its own checksum s, and s and its magnitude
+    against the twin's (fed K2's or the nf assignment); two runs give equal
+    bits; the nf-vs-base numerics.  Then at bf16 the times of every prefix
+    and its twin, the bounds, and the same base prefixes and K2 with its
+    residual pack at the train batch.  -> (stats, attribution: per phase
+    {ms per batch-8 forward, ms per train step})."""
+    import torch
+
+    from asy_vrnet_tpu_torch.ops import block
+    from asy_vrnet_tpu_torch.ops import mixer_ablate as ma
+    from asy_vrnet_tpu_torch.tools import ablate_mixer_fwd as tool
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
+
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_ablate_")
+
+    g = torch.Generator().manual_seed(14)
+
+    def rn(*sh, scale=1.0):
+        return torch.randn(*sh, generator=g) * scale
+
+    def cast(ws, dt):
+        return [w.to(dev, dt if w.dim() == 2 else torch.float32).contiguous() for w in ws]
+
+    def shape_inputs(geo, dt, x32, mixer_w):
+        if x32 is None:                                   # the TPU tool's own draw
+            return tool.make_inputs(geo, dev)
+        x = x32.to(dev, dt)
+        return x, block.gn1_stats(x), cast(mixer_w, dt)
+
+    cases = [(name, dict(b=b, h=h, w=w, c=c, heads=heads, d=d, fold=fold, ph=2, pw=2), calls)
+             for (name, b, h, w, c, heads, d, fold, _, calls) in SHAPES]
+    cases.append(("tool stage0 bs64", tool.geometry(0, 512, 0.25, 64), None))
+    stats = {"max_abs_err": 0.0, "max_rel_checksum_err_bf16": 0.0, "per_shape": [],
+             "numerics": []}
+    phases = ("gn", "centers", "feat", "sim", "agg", "full")
+    attribution = {p: {"forward_ms": 0.0, "train_ms": 0.0} for p in phases + ("pack",)}
+    for name, geo, calls in cases:
+        kw = dict(heads=geo["heads"], fold_h=geo["fold"], fold_w=geo["fold"],
+                  proposal_h=geo["ph"], proposal_w=geo["pw"])
+        b, c, inner, r = geo["b"], geo["c"], geo["heads"] * geo["d"], geo["fold"] ** 2
+        tool_case = calls is None
+        x32 = None if tool_case else rn(b, geo["h"], geo["w"], c)
+        mixer_w = None if tool_case else (
+            rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1), rn(c, inner, scale=c ** -0.5),
+            rn(inner, scale=0.1), rn(inner, c, scale=inner ** -0.5), rn(c, scale=0.1),
+            torch.tensor([1.5, 0.2]))
+        for dt in ((torch.bfloat16,) if tool_case else (torch.float32, torch.bfloat16)):
+            tag = f"{name} {str(dt)[6:]}"
+            x, st, mw = shape_inputs(geo, dt, x32, mixer_w)
+            out, mom, asg = block.mixer_block(x, st, *mw, return_assign=True, **kw)
+            k2_asg = asg.permute(0, 2, 3, 1).to(torch.int8)
+            full = ma.mixer_block_ablate(x, st, *mw, stop="full", return_assign=True, **kw)
+            nf_full = ma.mixer_block_ablate(x, st, *mw, stop="full", nf=True,
+                                            return_assign=True, **kw)
+            torch.cuda.synchronize()
+            groups = full[1].shape[1] // r
+            check(torch.equal(full[0], out) and torch.equal(full[1].sum(1), mom)
+                  and torch.equal(full[2], k2_asg), f"ablate full is K2, bit for bit {tag}")
+            ymax = (out.float() - x.float()).abs().max().item()
+            ref, _ = ma.mixer_block_ablate_plain(x, st, *mw, stop="full", nf=True, groups=groups,
+                                                 assign=nf_full[2], **kw)
+            diff = (nf_full[0].float() - ref.float()).abs()
+            if dt == torch.float32:
+                check(diff.max().item() <= 1e-4 * max(1.0, ymax), f"nf full {tag}")
+            else:
+                check(diff.mean().item() <= 0.02 * ymax
+                      and diff.max().item() <= ymax + 2 * bf16_ulp(ymax), f"nf full {tag}")
+            # max_abs_err: the full prefixes' outputs (base is K2's bits); a cut
+            # prefix's output rnd(x + s) is held through s instead
+            errs = {"nf full": diff.max().item()}
+            rel = {}
+            for stop, nf in tool.JOBS:
+                if stop == "full":
+                    continue
+                o, part = ma.mixer_block_ablate(x, st, *mw, stop=stop, nf=nf, **kw)
+                again = ma.mixer_block_ablate(x, st, *mw, stop=stop, nf=nf, **kw)
+                torch.cuda.synchronize()
+                lab = f"{'nf' if nf else 'base'} {stop}"
+                check(torch.equal(o, again[0]) and torch.equal(part, again[1]),
+                      f"{lab} bits {tag}")
+                s = part.view(b, r, groups, 2)
+                check(torch.equal(o, ma.write_through(x, s[..., 0], fold_h=geo["fold"],
+                                                      fold_w=geo["fold"])),
+                      f"{lab} wrote rnd(x + s) {tag}")
+                ro, rpart = ma.mixer_block_ablate_plain(
+                    x, st, *mw, stop=stop, nf=nf, groups=groups,
+                    assign=nf_full[2] if nf else k2_asg, **kw)
+                mag = rpart[..., 1]
+                e = torch.maximum((part[..., 0] - rpart[..., 0]).abs(),
+                                  (part[..., 1] - mag).abs()) / mag
+                rel[lab] = e.max().item()
+                check(rel[lab] <= (1e-5 if dt == torch.float32 else 1e-3),
+                      f"{lab} checksum {tag}: max |diff| / sum |terms| {rel[lab]:.3e}")
+            log(f"[check mixer_block_ablate {tag}] G {groups}: base full = K2 bit for bit "
+                f"(output, moments, assignment); max |diff| / sum |terms| of the checksums "
+                + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+                + f"; nf full vs twin max|diff| {errs['nf full']:.3e} (max|y| {ymax:.3e})")
+            if dt == torch.bfloat16:
+                stats["max_abs_err"] = max(stats["max_abs_err"], *errs.values())
+                stats["max_rel_checksum_err_bf16"] = max(stats["max_rel_checksum_err_bf16"],
+                                                         *rel.values())
+                dd = (out.float() - nf_full[0].float()).abs()
+                num = {"shape": name, "max_abs_diff": dd.max().item(),
+                       "mean_abs_y": out.float().abs().mean().item(),
+                       "frac_gt_1e-2": (dd > 1e-2).float().mean().item(),
+                       "frac_gt_1e-1": (dd > 1e-1).float().mean().item(),
+                       "assignment_agreement": (nf_full[2] == k2_asg).float().mean().item()}
+                stats["numerics"].append(num)
+                log(f"[ablate nf-vs-base {name} bf16] max|diff| {num['max_abs_diff']:.3e} "
+                    f"mean|y| {num['mean_abs_y']:.3e} frac > 1e-2 {num['frac_gt_1e-2']:.2e} "
+                    f"frac > 1e-1 {num['frac_gt_1e-1']:.2e} assignment agreement "
+                    f"{num['assignment_agreement']:.6f}")
+        # times at bf16 (the last dtype's inputs): each kernel's device time
+        # in a profiler trace (the launches at batch 8 are host-bound, so
+        # the CUDA-event times beside them include the host's work)
+        times = tool.time_prefixes(x, st, mw, kw, groups, 20, trace_dir)
+        ms = {job: t["ms_trace"] for job, t in times.items()}
+        for stop, nf in tool.JOBS:
+            pms = cuda_ms(lambda: ma.mixer_block_ablate_plain(
+                x, st, *mw, stop=stop, nf=nf, groups=groups, **kw), 3, warmup=1)
+            bms, by = tool.bound_ms(*tool.prefix_bounds(stop, nf, geo))
+            occ = ma.mixer_block_ablate(x, st, *mw, stop=stop, nf=nf, return_occupancy=True,
+                                        **kw)[-1]
+            check(occ[0] == occ[1], f"{name} {stop}: K2's CTAs per SM")
+            stats["per_shape"].append({"shape": name, "prefix": f"{'nf' if nf else 'base'} {stop}",
+                                       "ms": ms[(stop, nf)], "ms_events": times[(stop, nf)]["ms"],
+                                       "trace_count": times[(stop, nf)]["trace_count"],
+                                       "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+                                       "ctas_per_sm": occ, "calls_per_forward": calls})
+            log(f"[time mixer_block_ablate {name} bf16 {'nf' if nf else 'base'} {stop}] "
+                f"kernel {ms[(stop, nf)]:.4f} ms (trace; events {times[(stop, nf)]['ms']:.4f}), "
+                f"plain {pms:.4f} ms, bound {bms:.5f} ms ({by}), CTAs/SM {occ[0]} (K2 {occ[1]})"
+                + ("" if tool_case else f", x{calls} per forward"))
+        if tool_case:
+            continue
+        # the same base prefixes and K2 with its residual pack at the train batch
+        xt = rn(TRAIN_BATCH, geo["h"], geo["w"], c).to(dev, torch.bfloat16)
+        stt = block.gn1_stats(xt)
+        train = {job[0]: t["ms_trace"] for job, t in tool.time_prefixes(
+            xt, stt, mw, kw, None, 20, trace_dir, jobs=[(p, False) for p in phases]).items()}
+        # the pack: K2 with and without it through K2's own wrapper (CUDA
+        # events; these launches keep the card busy)
+        k2_pack = cuda_ms(lambda: block.mixer_block(xt, stt, *mw, return_residuals=True, **kw),
+                          20)
+        k2_eval = cuda_ms(lambda: block.mixer_block(xt, stt, *mw, **kw), 20)
+        prev_f = prev_t = 0.0
+        for p in phases:
+            attribution[p]["forward_ms"] += calls * (ms[(p, False)] - prev_f)
+            attribution[p]["train_ms"] += calls * (train[p] - prev_t)
+            prev_f, prev_t = ms[(p, False)], train[p]
+        attribution["pack"]["train_ms"] += calls * (k2_pack - k2_eval)
+        log(f"[ablate train batch {name}] bs={TRAIN_BATCH} ms (trace) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in train.items()) + f"; K2 with its pack {k2_pack:.4f}, "
+            f"without {k2_eval:.4f} (events)")
+    log("[ablate attribution] phase | ms per batch-8 forward | share | ms per fused train "
+        "step (K2 with its pack, bs=16) | share")
+    tot_f = sum(a["forward_ms"] for a in attribution.values())
+    tot_t = sum(a["train_ms"] for a in attribution.values())
+    for p, a in attribution.items():
+        log(f"[ablate attribution] {p}: {a['forward_ms']:.4f} | {a['forward_ms'] / tot_f:.3f} | "
+            f"{a['train_ms']:.4f} | {a['train_ms'] / tot_t:.3f}")
+    log(f"[ablate attribution] total: {tot_f:.4f} (K2's full prefix x calls) | "
+        f"{tot_t:.4f} (full prefix + the pack's Delta, x calls)")
+    shutil.rmtree(trace_dir)
+    return stats, attribution
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -759,10 +892,13 @@ def main() -> int:
     from asy_vrnet_tpu_torch.ops import block, kernels, simota_fused
     from asy_vrnet_tpu_torch.ops import cluster_fused as cf
     from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
+    from asy_vrnet_tpu_torch.ops import mixer_ablate as ma
     from asy_vrnet_tpu_torch.ops.boxes import decode_for_loss
     from asy_vrnet_tpu_torch.train.optim import adaptive_lr, set_learning_rate
     from asy_vrnet_tpu_torch.train.state import create_train_state, float_state
+    from asy_vrnet_tpu_torch.tools import ablate_mixer_fwd as ablate_tool
     from asy_vrnet_tpu_torch.train.train_step import build_train_step
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms, profile_calls
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1479,6 +1615,35 @@ def main() -> int:
                        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                        "bound_by": st["bound_by"], "library_ms": None,
                        "per_shape": st["per_shape"]})
+
+    # ---- 14. K2f-ablate: K2's prefixes against their twins, their times, the
+    # attribution of K2's time; then the profiling tool's own path ----
+    check(ma.LAUNCHES["mixer_block_ablate"] == 0, "no serving or train path ran a prefix")
+    ab_stats, attribution = check_ablation(dev)
+    reset_launches(ma)
+    tool_res = ablate_tool.run(ablate_tool.parse_args([]))
+    torch.cuda.synchronize()
+    tool_launches = ma.LAUNCHES["mixer_block_ablate"]
+    log(f"[ablate tool] launches {tool_launches}; trace ms per prefix " + ", ".join(
+        f"{r['variant']} {r['stop']} {r['ms_trace']:.4f}" for r in tool_res["rows"]))
+    check(tool_launches > 0 and all(r["ms_trace"] > 0 for r in tool_res["rows"]),
+          "the tool launched every prefix and its trace timed each")
+    tool_geo = tool_res["geometry"]
+    bounds = [ablate_tool.prefix_bounds(r["stop"], r["variant"] == "nf", tool_geo)
+              for r in tool_res["rows"]]
+    report.append({
+        "name": "mixer_block_ablate", "route": "cuda", **ABLATE_KERNEL,
+        "launches": tool_launches, "launches_serving_and_train": 0,
+        "max_abs_err": ab_stats["max_abs_err"],
+        "max_rel_checksum_err_bf16": ab_stats["max_rel_checksum_err_bf16"],
+        "ms": sum(r["ms_trace"] for r in tool_res["rows"]),
+        "plain_ms": sum(e["plain_ms"] for e in ab_stats["per_shape"]
+                        if e["shape"] == "tool stage0 bs64"),
+        "bound_ms": sum(r["bound_ms"] for r in tool_res["rows"]),
+        "bound_by": ("operations" if sum(f for f, _ in bounds) / PEAK_FLOPS
+                     >= sum(b for _, b in bounds) / PEAK_BYTES else "bytes"),
+        "library_ms": None, "tool": tool_res, "attribution": attribution,
+        "numerics_bf16": ab_stats["numerics"], "per_shape": ab_stats["per_shape"]})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,

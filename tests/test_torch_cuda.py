@@ -629,3 +629,47 @@ def test_cluster_mix_fused_gradients_on_card_match_cpu(dev):
         res[device.type] = [out.detach().cpu()] + [a.grad.cpu() for a in args]
     for name, a, b in zip(("out", "dfeat", "dvalue", "dalpha", "dbeta"), res["cuda"], res["cpu"]):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item()), name
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_ablate_prefixes_match_plain(dev, shape, dt):
+    """K2's prefixes (ops/mixer_ablate.py): base `full` is K2 bit for bit
+    (output, moments, assignment); every cut prefix wrote rnd(x + s) with its
+    checksum s, which (with its sum of |terms|) is within 1e-5 (f32) or 1e-3
+    (bf16) of the twin's sum of |terms| per CTA, the twin fed the kernel's
+    assignment; nf `full` against its twin fed its own assignment, as the
+    mixer half."""
+    from asy_vrnet_tpu_torch.ops import mixer_ablate as ma
+
+    x, _, st, args, kw = _mixer_setup(dev, shape, dt, 14)
+    fold = kw["fold_h"]
+    out, mom, asg = block.mixer_block(x, st, *args, return_assign=True, **kw)
+    asg = asg.permute(0, 2, 3, 1).to(torch.int8)
+    before = ma.LAUNCHES["mixer_block_ablate"]
+    o, part, a = ma.mixer_block_ablate(x, st, *args, stop="full", return_assign=True, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, out) and torch.equal(part.sum(1), mom) and torch.equal(a, asg)
+    groups = part.shape[1] // fold ** 2
+    o, part, nf_asg = ma.mixer_block_ablate(x, st, *args, stop="full", nf=True,
+                                            return_assign=True, **kw)
+    ref, _ = ma.mixer_block_ablate_plain(x, st, *args, stop="full", nf=True, groups=groups,
+                                         assign=nf_asg, **kw)
+    diff = (o.float() - ref.float()).abs()
+    ymax = (out.float() - x.float()).abs().max().item()
+    if dt == torch.float32:
+        assert diff.max().item() <= 1e-4 * max(1.0, ymax)
+    else:
+        ulp = 2.0 ** (torch.log2(out.float().abs().max()).floor().item() - 7)
+        assert diff.mean().item() <= 0.02 * ymax and diff.max().item() <= ymax + 2 * ulp
+    for stop, nf in [(s, False) for s in ma.STOPS[False][:-1]] + [
+            (s, True) for s in ma.STOPS[True][:-1]]:
+        o, part = ma.mixer_block_ablate(x, st, *args, stop=stop, nf=nf, **kw)
+        torch.cuda.synchronize()
+        s = part.view(x.shape[0], fold ** 2, groups, 2)[..., 0]
+        assert torch.equal(o, ma.write_through(x, s, fold_h=fold, fold_w=fold))
+        _, want = ma.mixer_block_ablate_plain(x, st, *args, stop=stop, nf=nf, groups=groups,
+                                              assign=nf_asg if nf else asg, **kw)
+        tol = (1e-5 if dt == torch.float32 else 1e-3) * want[..., 1]
+        assert ((part - want).abs() <= tol[..., None]).all(), (stop, nf)
+    assert ma.LAUNCHES["mixer_block_ablate"] == before + 11

@@ -31,15 +31,15 @@ def test_no_jax_imports(path):
 
 
 def test_the_walk_covers_the_training_modules_and_the_smoke_script():
-    """Every module the train step (module path and fused blocks) runs is
-    among the checked sources."""
+    """Every module the train step (module path and fused blocks) and the
+    mixer ablation tool run is among the checked sources."""
     have = {str(p.relative_to(ROOT)) for p in SOURCES}
     want = {"chip_smoke.py"} | {f"asy_vrnet_tpu_torch/{m}.py" for m in (
         "ops/losses_seg", "ops/losses_seg_fused", "ops/simota", "ops/simota_fused",
         "ops/losses_det", "ops/kernels", "train/optim", "train/state", "train/train_step",
         "data/synthetic", "data/preprocess", "utils/weights", "utils/device",
         "ops/block", "ops/cluster", "ops/cluster_fused", "models/cluster_block",
-        "models/remat")}
+        "models/remat", "utils/profiling", "ops/mixer_ablate", "tools/ablate_mixer_fwd")}
     assert want <= have, sorted(want - have)
 
 
