@@ -16,41 +16,55 @@
 // What bounds it on the H100: per token it reads and writes C bf16 values
 // and does ~2*C*I (fc1) + 2*I*(M+1) (norms, cosines) + 4*C*heads
 // (aggregate, dispatch) flops, 50-140 flop/byte at the nano shapes: under
-// the bf16 tensor-core ridge (~295), so the least time is set by bytes.  Unfused, the I-wide feat/value
-// maps (I = 96..256 against C = 16..160) would cross device memory several
-// times.  In practice this design is bound by latency and parallelism: the
-// cosine/argmax/aggregation work is per (token, head) and short.
+// the bf16 tensor-core ridge (~295), so the least time is set by bytes.
+// Unfused, the I-wide feat/value maps (I = 96..256 against C = 16..160)
+// would cross device memory several times.  In practice the kernel is bound
+// by latency: a region's tokens are swept in order by one cluster, with
+// short per-(token, head) work between barriers, and at batch 8 the grid is
+// 64-512 CTAs, one wave.
 //
 // Design.  The TPU kernel's dense masked per-head/per-region matmuls (~16x
 // redundant flops) are not carried over.  Each (sample, region) is one
 // thread-block cluster of G CTAs (G divides heads, G <= 8; the caller picks
 // G = 1 when there are at least as many regions as SMs, since every CTA of
-// a cluster re-reads its whole region); CTA g owns heads
-// [g*hpc, (g+1)*hpc), hpc = heads/G, i.e. the I-columns of those heads:
+// a cluster sweeps its whole region, and a larger G where a block would not
+// fit in shared memory); CTA g owns heads [g*hpc, (g+1)*hpc), hpc = heads/G,
+// i.e. the Dg = I/G columns of those heads.  It stages its fc1/fc_v columns
+// and fc2 rows in shared memory once (cp.async), so no phase reads a weight
+// from device memory again:
 //   A. pool the region's proposal windows in INPUT space (adaptive average of
-//      xn), project the M pooled rows with the CTA's fc1/fc_v columns,
+//      xn) over all 256 threads, each CTA of the cluster a 1/G share of the
+//      channels, the rows then swapped through distributed shared memory;
+//      project the M pooled rows with the CTA's fc1/fc_v columns,
 //      L2-normalise per head;
-//   B. sweep the region's tokens in chunks of 32 from device memory (L2):
-//      recompute the chunk's feat columns in shared memory; per (token, head)
-//      (8 lanes each) cosine to the M centers, first-max argmax on the
-//      pre-sigmoid logit beta + alpha*cos (strict >), sigmoid of the winner;
-//      accumulate sim * xn per (head, center) in INPUT space, in 8 fixed
-//      token splits (deterministic), plus the sum of sims and the count;
+//   B. sweep the region's tokens in chunks of 32, staged raw with cp.async
+//      (chunk n + 1 loads while chunk n computes; three buffers) and
+//      normalised as they are read; two barriers a chunk.  feat of the
+//      chunk's columns on tensor cores (bf16: mma.sync m16n8k16, ldmatrix
+//      fragments, the normalisation applied to the A fragments; f32 and
+//      widths off the tensor-core shapes: FMA chains on CUDA cores); per
+//      (token, head) (8 lanes each) cosine to the M centers, first-max
+//      argmax on the pre-sigmoid logit beta + alpha*cos (strict >), sigmoid
+//      of the winner; one chunk behind, accumulate sim * xn per (head,
+//      center) in INPUT space, the sums of sims and the counts, in 4 fixed
+//      token splits, each accumulator with one owner thread (deterministic,
+//      no atomics);
 //   C. finish the centers ((agg @ wv + rs*bv + v_c) / (count + 1)) and fold
 //      fc2 into them; the cluster then swaps fc2-projected centers and
 //      (token, head) assignments through distributed shared memory, and
 //      each CTA dispatches 1/G of the region's tokens over all heads, adds
 //      the residual, writes the output and reduces its moments.
 // feat is never stored, so a 1024-token region (the p3 neck block) needs no
-// more shared memory than its chunk.
+// more shared memory than its chunks.
 //
 // Numerics mirror the TPU kernel: xn, feat (for the cosine), feat^2 (for the
 // norms), the token inverse norms, the centers, the sims, the aggregated
 // centers and the fc2-projected centers are rounded to the working type where
-// that kernel casts them to its matrix-unit type; every sum is f32.  Phases A
-// and B (and the mixed centers) are the device code of mixer_block.cuh, which
-// the full-remat backward (K6r) runs too, so that it rebuilds this kernel's
-// assignment bit for bit.
+// that kernel casts them to its matrix-unit type; every sum is f32, in a
+// fixed order.  The pooling, feat, the assignment and the split sums are the
+// device code of mixer_block.cuh, which the full-remat backward (K6r) runs
+// too, so that it rebuilds this kernel's assignment bit for bit (K6 takes
+// the same feat).
 //
 // Prefixes (the ablation tool, asy_vrnet_tpu_torch/tools/ablate_mixer_fwd.py;
 // it replaces the TPU tool tools/ablate_mixer_fwd.py:252).  The template
@@ -70,6 +84,7 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mixer_block.cuh"
@@ -82,6 +97,7 @@ using asy::mix::kChunk;  // tokens per sweep-B chunk
 using asy::mix::kLanes;  // lanes per (token, head) in the assignment
 using asy::mix::kSplit;  // fixed token splits of the aggregation
 constexpr int kThreads = 256;
+constexpr int kBufs = 3;  // chunk buffers: load n + 1, feat n, aggregate n - 1
 
 // where a prefix stops (kCosm: the normalise-first variant only)
 constexpr int kGn = 0, kCenters = 1, kFeat = 2, kCosm = 3, kSim = 4, kAgg = 5, kFull = 6;
@@ -89,36 +105,56 @@ constexpr int kGn = 0, kCenters = 1, kFeat = 2, kCosm = 3, kSim = 4, kAgg = 5, k
 struct Geo {
   int B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, N, ph, pw, M;
   int G, hpc, nper;  // CTAs per cluster, heads per CTA, dispatch tokens per CTA
+  int tc;            // feat on tensor cores
+  int sx, sw;        // row strides (elements) of the staged chunks and wf/wv columns
+  int vec;           // bytes per cp.async copy (0: plain loads)
 };
 
-struct Smem {  // offsets in floats, then bytes after `floats`
-  size_t xs, fs, cin, cn, vc, aggp, ocw_own, ocw_all, rs, cnt, invc, red, sg, sg_all;
-  size_t floats, asg, asg_all, bytes;
+struct Smem {  // byte offsets, each 16-byte aligned
+  size_t wf, wv, w2, xs, fs, cin, cn, vc, aggp, rsp, cntp, ocw_own, ocw_all, invc, red, sg,
+      sg_all, asg, asg_all, bytes;
 };
 
-inline Smem smem_layout(const Geo& g) {
-  const size_t dg = (size_t)g.hpc * g.D, mc = (size_t)g.M * g.C;
+template <typename T>
+inline Geo make_geo(int B, int H, int W, int C, int I, int heads, int fold_h, int fold_w,
+                    int ph, int pw, int G, int tc) {
+  const int rh = H / fold_h, rw = W / fold_w, n = rh * rw, dg = I / G;
+  // rows padded so that a row starts 16 bytes on from its neighbour's bank:
+  // ldmatrix's 8 row reads then fall on disjoint banks
+  return Geo{B, H, W, C, I, heads, I / heads, fold_h, fold_w, rh, rw, n, ph, pw, ph * pw,
+             G, heads / G, (n + G - 1) / G, tc, C + 16 / (int)sizeof(T),
+             (dg + 15) / 16 * 16 + 8, 0};
+}
+
+inline Smem smem_layout(const Geo& g, size_t esz) {
+  const size_t dg = (size_t)g.hpc * g.D, mc = (size_t)g.M * g.C, f = sizeof(float);
   const size_t gathered = g.G > 1;  // the *_all buffers exist only in clusters
   Smem s;
   size_t o = 0;
-  s.xs = o;      o += (size_t)kChunk * g.C;
-  s.fs = o;      o += std::max((size_t)kChunk * (dg + kLanes), (size_t)g.M * dg);
-  s.cin = o;     o += mc;
-  s.cn = o;      o += g.M * dg;
-  s.vc = o;      o += g.M * dg;
-  s.aggp = o;    o += (size_t)kSplit * g.hpc * mc;
-  s.ocw_own = o; o += g.hpc * mc;
-  s.ocw_all = o; o += gathered * g.heads * mc;
-  s.rs = o;      o += (size_t)g.hpc * g.M;
-  s.cnt = o;     o += (size_t)g.hpc * g.M;
-  s.invc = o;    o += (size_t)g.hpc * g.M;
-  s.red = o;     o += 2 * (kThreads / 32);
-  s.sg = o;      o += (size_t)g.N * g.hpc;
-  s.sg_all = o;  o += gathered * g.nper * g.heads;
-  s.floats = o;
-  s.asg = o * sizeof(float);
-  s.asg_all = s.asg + (size_t)g.N * g.hpc;
-  s.bytes = s.asg_all + gathered * g.nper * g.heads;
+  auto put = [&](size_t& at, size_t bytes) {
+    at = o;
+    o = (o + bytes + 15) / 16 * 16;
+  };
+  put(s.wf, (size_t)g.C * g.sw * esz);
+  put(s.wv, (size_t)g.C * g.sw * esz);
+  put(s.w2, dg * g.C * esz);
+  put(s.xs, (size_t)kBufs * kChunk * g.sx * esz);
+  put(s.fs, std::max((size_t)kChunk * (dg + kLanes), (size_t)g.M * dg) * f);
+  put(s.cin, mc * f);
+  put(s.cn, g.M * dg * f);
+  put(s.vc, g.M * dg * f);
+  put(s.aggp, (size_t)kSplit * g.hpc * mc * f);
+  put(s.rsp, (size_t)kSplit * g.hpc * g.M * f);
+  put(s.cntp, (size_t)kSplit * g.hpc * g.M * f);
+  put(s.ocw_own, g.hpc * mc * f);
+  put(s.ocw_all, gathered * g.heads * mc * f);
+  put(s.invc, (size_t)g.hpc * g.M * f);
+  put(s.red, 2 * (kThreads / 32) * f);
+  put(s.sg, (size_t)g.N * g.hpc * f);
+  put(s.sg_all, gathered * g.nper * g.heads * f);
+  put(s.asg, (size_t)g.N * g.hpc);
+  put(s.asg_all, gathered * g.nper * g.heads);
+  s.bytes = o;
   return s;
 }
 
@@ -139,25 +175,28 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   const int C = g.C, I = g.I, heads = g.heads, D = g.D, M = g.M, N = g.N;
   // feat rows padded by kLanes: the 4 tokens of a warp in the assignment
   // loop (8 lanes each) then fall on disjoint banks
-  const int hpc = g.hpc, G = g.G, Dg = hpc * D, DP = Dg + kLanes;
-  float* sm = reinterpret_cast<float*>(smem4);
+  const int hpc = g.hpc, G = g.G, Dg = hpc * D, DP = Dg + kLanes, SX = g.sx, SW = g.sw;
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
-  float* xs = sm + L.xs;            // [kChunk][C] normalised input chunk
-  float* fs = sm + L.fs;            // [kChunk][DP] feat chunk; later oc [M][Dg]
-  float* cin = sm + L.cin;          // [M][C] pooled input rows
-  float* cn = sm + L.cn;            // [M][Dg] normalised centers (own heads)
-  float* vc = sm + L.vc;            // [M][Dg] value centers
-  float* aggp = sm + L.aggp;        // [kSplit][hpc][M][C] partial sim*xn sums
-  float* ocw_own = sm + L.ocw_own;  // [hpc][M][C] fc2-projected centers
-  float* ocw_all = sm + L.ocw_all;  // [heads][M][C] gathered from the cluster
-  float* rs = sm + L.rs;            // [hpc][M] sum of sims
-  float* cnt = sm + L.cnt;          // [hpc][M] counts
-  float* invc = sm + L.invc;        // [M][hpc]
-  float* red = sm + L.red;          // [2][warps]
-  float* sg = sm + L.sg;            // [N][hpc] winner sigmoid
-  float* sg_all = sm + L.sg_all;    // [nper][heads]
-  unsigned char* asg = sb + L.asg;          // [N][hpc] winner index
-  unsigned char* asg_all = sb + L.asg_all;  // [nper][heads]
+  auto fl = [&](size_t o) { return reinterpret_cast<float*>(sb + o); };
+  T* wfs = reinterpret_cast<T*>(sb + L.wf);  // [C][SW] the CTA's fc1 columns
+  T* wvs = reinterpret_cast<T*>(sb + L.wv);  // [C][SW] its fc_v columns
+  T* w2s = reinterpret_cast<T*>(sb + L.w2);  // [Dg][C] its fc2 rows
+  T* xsb = reinterpret_cast<T*>(sb + L.xs);  // [kBufs][kChunk][SX] raw input chunks
+  float* fs = fl(L.fs);                      // [kChunk][DP] feat chunk; later oc [M][Dg]
+  float* cin = fl(L.cin);                    // [M][C] pooled input rows
+  float* cn = fl(L.cn);                      // [M][Dg] normalised centers (own heads)
+  float* vc = fl(L.vc);                      // [M][Dg] value centers
+  float* aggp = fl(L.aggp);                  // [kSplit][hpc][M][C] partial sim*xn sums
+  float* rs = fl(L.rsp);                     // [kSplit][hpc][M] sums of sims (then split 0)
+  float* cnt = fl(L.cntp);                   // [kSplit][hpc][M] counts (then split 0)
+  float* ocw_own = fl(L.ocw_own);            // [hpc][M][C] fc2-projected centers
+  float* ocw_all = fl(L.ocw_all);            // [heads][M][C] gathered from the cluster
+  float* invc = fl(L.invc);                  // [M][hpc]
+  float* red = fl(L.red);                    // [2][warps]
+  float* sg = fl(L.sg);                      // [N][hpc] winner sigmoid
+  float* sg_all = fl(L.sg_all);              // [nper][heads]
+  unsigned char* asg = sb + L.asg;           // [N][hpc] winner index
+  unsigned char* asg_all = sb + L.asg_all;   // [nper][heads]
 
   const int tid = threadIdx.x;
   const int rank = (int)cluster.block_rank();
@@ -184,16 +223,50 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     mag += fabsf(v);
   };
 
+  // ---- staging (cp.async): the CTA's weights, then the first chunk ----
+  // A chunk is staged raw and normalised as it is read (rnd((x - mu) *
+  // rstd), the same bits as norm_in): no pass, no barrier of its own.
+  const int chunks = (N + kChunk - 1) / kChunk;
+  auto chunk = [&](int k) -> const T* { return xsb + (k % kBufs) * kChunk * SX; };
+  auto load_chunk = [&](int k) {
+    const int n0 = k * kChunk;
+    asy::stage_rows(xsb + (k % kBufs) * kChunk * SX, SX,
+                    [&](int t) { return x + tok(n0 + t); }, kChunk, min(kChunk, N - n0), C,
+                    g.vec);
+    asy::cp_async_commit();
+  };
+  if constexpr (kStop >= kCenters) {
+    asy::stage_rows(wfs, SW, [&](int c) { return wf + (size_t)c * I + col0; }, C, C, Dg,
+                    g.vec);
+    asy::stage_rows(wvs, SW, [&](int c) { return wv + (size_t)c * I + col0; }, C, C, Dg,
+                    g.vec);
+    if constexpr (kStop == kFull)
+      asy::stage_rows(w2s, C, [&](int j) { return w2 + (size_t)(col0 + j) * C; }, Dg, Dg, C,
+                      g.vec);
+    asy::cp_async_commit();
+  }
+  load_chunk(0);
   for (int e = tid; e < kSplit * hpc * M * C; e += kThreads) aggp[e] = 0.f;
-  for (int e = tid; e < hpc * M; e += kThreads) rs[e] = cnt[e] = 0.f;
+  for (int e = tid; e < kSplit * hpc * M; e += kThreads) rs[e] = cnt[e] = 0.f;
 
   // ---- A. centers: adaptive-average pool in input space, then project ----
-  auto wf_col = [&](int c, int j) { return to_f<T>(wf[(size_t)c * I + col0 + j]); };
-  auto wv_col = [&](int c, int j) { return to_f<T>(wv[(size_t)c * I + col0 + j]); };
+  auto wf_col = [&](int c, int j) { return to_f<T>(wfs[c * SW + j]); };
+  auto wv_col = [&](int c, int j) { return to_f<T>(wvs[c * SW + j]); };
   if constexpr (kStop >= kCenters) {
-    asy::mix::project_centers<T>([&](int n, int c) { return norm_in(x[tok(n) + c]); },
-                                 wf_col, wv_col, bf + col0, bv + col0, C, Dg, D, hpc, M,
-                                 g.rh, g.rw, g.ph, g.pw, cin, cn, vc, invc);
+    asy::cp_async_wait<1>();  // the weights (the first chunk may still be in flight)
+    // the cluster's CTAs pool a share of the channels each, then swap rows
+    asy::mix::pool_centers<T>([&](int n, int c) { return norm_in(x[tok(n) + c]); }, C, D, M,
+                              g.rh, g.rw, g.ph, g.pw, fs, cin, rank, G);
+    if (G > 1) {
+      cluster.sync();
+      for (int e = tid; e < M * C; e += kThreads) {
+        const int p = asy::mix::pool_part(e % C, C, G);
+        if (p != rank) cin[e] = cluster.map_shared_rank(cin, p)[e];
+      }
+      cluster.sync();  // no CTA goes on to overwrite or leave while a peer reads
+    }
+    asy::mix::project_centers(wf_col, wv_col, bf + col0, bv + col0, C, Dg, D, hpc, M, cin, cn,
+                              vc, invc);
     if (crep_out != nullptr) {
       for (int e = tid; e < M * Dg; e += kThreads)
         crep_out[center(e / Dg, e % Dg)] = asy::from_f<T>(cn[e]);
@@ -206,86 +279,107 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   }
 
   // ---- B. assign + aggregate, chunk by chunk ----
+  // Iteration k: chunk k + 1 loads while chunk k's feat and assignment and
+  // chunk k - 1's aggregation run; two barriers per chunk.
   const int sub = tid % kLanes;
-  for (int n0 = 0; n0 < N; n0 += kChunk) {
-    const int nt = min(kChunk, N - n0);
-    for (int e = tid; e < kChunk * C; e += kThreads) {
-      const int t = e / C, c = e % C;
-      xs[e] = t < nt ? norm_in(x[tok(n0 + t) + c]) : 0.f;
-    }
-    __syncthreads();
+  auto xn_at = [&](const T* xb, int t, int c) { return norm_in(xb[t * SX + c]); };
+  auto aggregate = [&](int k) {  // the split sums of chunk k
+    const int n0 = k * kChunk;
+    const T* xb = chunk(k);
+    asy::mix::agg_chunk<T, kStop >= kAgg>(
+        [&](int t, int c) { return xn_at(xb, t, c); }, sg + n0 * hpc,
+        [&](int q) { return (int)asg[n0 * hpc + q]; }, min(kChunk, N - n0), hpc, M, C,
+        kSplit, aggp, rs, cnt);
+  };
+  for (int k = 0; k < chunks; ++k) {
+    const int n0 = k * kChunk, nt = min(kChunk, N - n0);
+    const T* xb = chunk(k);
+    asy::cp_async_wait<0>();
+    __syncthreads();  // chunk k staged; k - 1's assignment and k - 2's aggregation done
+    if (k + 1 < chunks) load_chunk(k + 1);
     if constexpr (kStop < kFeat) {
-      for (int e = tid; e < nt * C; e += kThreads) take(xs[e]);
-    } else {
-      asy::mix::feat_chunk<T>(xs, C, wf_col, bf + col0, Dg, DP, fs);
-      __syncthreads();
-      if constexpr (kStop == kFeat && !kNf) {
-        for (int e = tid; e < nt * Dg; e += kThreads) take(fs[(e / Dg) * DP + e % Dg]);
-      } else {
-        // per (token, head), kLanes lanes each: cosine to the M centers and
-        // the first-max assignment.  kChunk*hpc items is a multiple of the 32
-        // items a pass covers, so every lane of a warp runs the same
-        // iterations.
-        for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
-          const int t = it % kChunk, hl = it / kChunk;
-          float* f = fs + t * DP + hl * D;
-          if constexpr (kNf) {
-            asy::mix::normalise_feat<T>(f, D, sub);
-            if constexpr (kStop == kFeat) {
-              if (t < nt)
-                for (int d = sub; d < D; d += kLanes) take(f[d]);
-              continue;
-            }
-            if constexpr (kStop == kCosm) {
-              for (int m = 0; m < M; ++m) {
-                const float cs = asy::mix::cos_nf(f, cn + m * Dg + hl * D, D, sub);
-                if (sub == 0 && t < nt) take(cs);
-              }
-              continue;
-            }
-          }
-          asy::mix::Winner win;
-          if constexpr (kNf)
-            win = asy::mix::assign_nf(f, cn + hl * D, Dg, D, M, alpha, beta, sub);
-          else
-            win = asy::mix::assign<T>(f, cn + hl * D, Dg, D, M, alpha, beta, sub);
-          if (sub == 0 && t < nt) {
-            sg[(n0 + t) * hpc + hl] = asy::mix::sigmoid(win.best);
-            asg[(n0 + t) * hpc + hl] = (unsigned char)win.arg;
-            if (cbest_out != nullptr)
-              cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(win.cos);
-          }
-        }
+      for (int e = tid; e < nt * C; e += kThreads) take(xn_at(xb, e / C, e % C));
+      continue;
+    }
+    bool on_tc = false;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) on_tc = g.tc != 0;
+    if (on_tc) {
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        auto norm_pair = [&](uint32_t v) {
+          const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(&v);
+          return asy::pack_bf16((__bfloat162float(h.x) - mu) * rstd,
+                                (__bfloat162float(h.y) - mu) * rstd);
+        };
+        asy::mix::feat_chunk_mma(
+            [&](int mt, int kk, uint32_t(&a)[4]) {
+              asy::ldmatrix_a(a, xb + mt * 16 * SX + kk * 16, SX);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) a[i] = norm_pair(a[i]);
+            },
+            [&](int nt_, int kk, uint32_t& b0, uint32_t& b1) {
+              asy::ldmatrix_b(b0, b1, wfs + kk * 16 * SW + nt_ * 8, SW);
+            },
+            bf + col0, C, Dg, DP, fs);
       }
-      if constexpr (kStop >= kSim) {
-        __syncthreads();
-        // aggregate sim * xn per (head, center) in input space; split s
-        // takes the chunk's tokens t = s mod kSplit (a fixed, deterministic
-        // order)
-        if constexpr (kStop >= kAgg) {
-          for (int e = tid; e < kSplit * hpc * C; e += kThreads) {
-            const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
-            float* ap = aggp + (size_t)(s * hpc + hl) * M * C + c;
-            for (int t = s; t < nt; t += kSplit) {
-              const int q = (n0 + t) * hpc + hl;
-              ap[asg[q] * C] = fmaf(rnd<T>(sg[q]), xs[t * C + c], ap[asg[q] * C]);
+    } else {
+      asy::mix::feat_chunk<T>(
+          [&](int t, int c4) {
+            const T* p = xb + t * SX + 4 * c4;
+            return make_float4(norm_in(p[0]), norm_in(p[1]), norm_in(p[2]), norm_in(p[3]));
+          },
+          C, wf_col, bf + col0, Dg, DP, fs);
+    }
+    __syncthreads();  // feat of chunk k in fs
+    if constexpr (kStop == kFeat && !kNf) {
+      for (int e = tid; e < nt * Dg; e += kThreads) take(fs[(e / Dg) * DP + e % Dg]);
+    } else {
+      // per (token, head), kLanes lanes each: cosine to the M centers and
+      // the first-max assignment.  kChunk*hpc items is a multiple of the 32
+      // items a pass covers, so every lane of a warp runs the same
+      // iterations.
+      for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
+        const int t = it % kChunk, hl = it / kChunk;
+        float* f = fs + t * DP + hl * D;
+        if constexpr (kNf) {
+          asy::mix::normalise_feat<T>(f, D, sub);
+          if constexpr (kStop == kFeat) {
+            if (t < nt)
+              for (int d = sub; d < D; d += kLanes) take(f[d]);
+            continue;
+          }
+          if constexpr (kStop == kCosm) {
+            for (int m = 0; m < M; ++m) {
+              const float cs = asy::mix::cos_nf(f, cn + m * Dg + hl * D, D, sub);
+              if (sub == 0 && t < nt) take(cs);
             }
+            continue;
           }
         }
-        for (int e = tid; e < hpc * M; e += kThreads) {
-          const int hl = e / M, m = e % M;
-          for (int t = 0; t < nt; ++t) {
-            const int q = (n0 + t) * hpc + hl;
-            if (asg[q] == m) {
-              rs[e] += sg[q];
-              cnt[e] += 1.f;
-            }
-          }
+        asy::mix::Winner win;
+        if constexpr (kNf)
+          win = asy::mix::assign_nf(f, cn + hl * D, Dg, D, M, alpha, beta, sub);
+        else
+          win = asy::mix::assign<T>(f, cn + hl * D, Dg, D, M, alpha, beta, sub);
+        if (sub == 0 && t < nt) {
+          sg[(n0 + t) * hpc + hl] = asy::mix::sigmoid(win.best);
+          asg[(n0 + t) * hpc + hl] = (unsigned char)win.arg;
+          if (cbest_out != nullptr)
+            cbest_out[tok(n0 + t) / C * heads + rank * hpc + hl] = asy::from_f<T>(win.cos);
         }
       }
     }
-    __syncthreads();
+    if constexpr (kStop >= kSim)
+      if (k > 0) aggregate(k - 1);
   }
+  if constexpr (kStop >= kSim) {
+    __syncthreads();
+    aggregate(chunks - 1);
+    __syncthreads();
+    asy::mix::sum_splits<T, false>(rs, hpc * M, 1, kSplit);
+    asy::mix::sum_splits<T, false>(cnt, hpc * M, 1, kSplit);
+    if constexpr (kStop >= kAgg) asy::mix::sum_splits<T, true>(aggp, hpc * M, C, kSplit);
+  }
+  __syncthreads();
   if constexpr (kStop == kSim) {
     for (int e = tid; e < hpc * M; e += kThreads) {
       take(rs[e]);
@@ -296,12 +390,6 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   // ---- C. finish the CTA's centers, fold fc2 in ----
   float* oc = fs;  // [M][Dg]
   if constexpr (kStop >= kAgg) {
-    for (int e = tid; e < hpc * M * C; e += kThreads) {  // sum the splits, round
-      float a = 0.f;
-      for (int s = 0; s < kSplit; ++s) a += aggp[(size_t)s * hpc * M * C + e];
-      aggp[e] = rnd<T>(a);
-    }
-    __syncthreads();
     for (int e = tid; e < M * Dg; e += kThreads) {
       const int m = e / Dg, j = e % Dg, hm = (j / D) * M + m;
       oc[e] = asy::mix::mixed_center<T>(aggp + hm * C, [&](int c) { return wv_col(c, j); }, C,
@@ -345,8 +433,7 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       const int c = e % C, hm = e / C, hl = hm / M, m = hm % M;
       float acc = 0.f;
       for (int d = 0; d < D; ++d)
-        acc = fmaf(oc[m * Dg + hl * D + d],
-                   to_f<T>(w2[(size_t)(col0 + hl * D + d) * C + c]), acc);
+        acc = fmaf(oc[m * Dg + hl * D + d], to_f<T>(w2s[(hl * D + d) * C + c]), acc);
       ocw_own[e] = rnd<T>(acc);
     }
     if (assign_out != nullptr) {
@@ -379,8 +466,10 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       __syncthreads();
     }
     float s1 = 0.f, s2 = 0.f;
+    const float rc = 1.f / C;
     for (int e = tid; e < nd * C; e += kThreads) {
-      const int nl = e / C, c = e % C;
+      int c;
+      const int nl = asy::div_small(e, C, rc, c);
       float y = 0.f;
       for (int h = 0; h < heads; ++h) {
         const int q = nl * heads + h;
@@ -418,22 +507,27 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
 // Launches K2 (kStop = kFull, base) or one of its prefixes.  `occupancy`
 // (the ablation: 2 ints, the prefix's CTAs per SM as launched and K2's) is
 // null for K2 itself; for a prefix, the dynamic shared memory is padded until
-// an SM holds no more of its CTAs than of K2's.
+// an SM holds no more of its CTAs than of K2's.  tc: feat on tensor cores,
+// as the caller counts it; refused unless it is asy::mix::feat_on_tc's own
+// choice, so it confirms the path and never selects one.
 template <typename T, int kStop, bool kNf>
 int launch(const void* x, const float* stats, const void* wf, const float* bf,
            const void* wv, const float* bv, const void* w2, const float* b2,
            const float* ab, void* out, float* part, int8_t* assign, void* cbest,
            void* crep, void* oc, int B, int H, int W, int C, int I, int heads,
-           int fold_h, int fold_w, int ph, int pw, int G, int* occupancy, void* stream) {
+           int fold_h, int fold_w, int ph, int pw, int G, int tc, int* occupancy,
+           void* stream) {
   if (B <= 0 || C % 4 || heads <= 0 || I % heads || fold_h <= 0 || fold_w <= 0 ||
       H % fold_h || W % fold_w || ph <= 0 || pw <= 0 || ph * pw > 255 || G <= 0 ||
       G > 8 || heads % G)
     return (int)cudaErrorInvalidValue;
-  const int rh = H / fold_h, rw = W / fold_w, n = rh * rw;
-  Geo g{B, H, W, C, I, heads, I / heads, fold_h, fold_w, rh, rw, n, ph, pw, ph * pw,
-        G, heads / G, (n + G - 1) / G};
-  if (rh < ph || rw < pw) return (int)cudaErrorInvalidValue;
-  const Smem L = smem_layout(g);
+  if ((tc != 0) != asy::mix::feat_on_tc<T>(C, I / heads)) return (int)cudaErrorInvalidValue;
+  Geo g = make_geo<T>(B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, tc != 0);
+  if (g.rh < ph || g.rw < pw) return (int)cudaErrorInvalidValue;
+  const size_t sz = sizeof(T);
+  g.vec = asy::copy_bytes({(size_t)x, (size_t)wf, (size_t)wv, (size_t)w2, C * sz,
+                           (size_t)g.hpc * g.D * sz, I * sz});
+  const Smem L = smem_layout(g, sz);
   const auto kernel = mixer_block_kernel<T, kStop, kNf>;
   size_t bytes = L.bytes;
   cudaError_t e = asy::set_smem(kernel, bytes);
@@ -482,12 +576,11 @@ template <typename T>
 int launch_prefix(const void* x, const float* stats, const void* wf, const float* bf,
                   const void* wv, const float* bv, const void* w2, const float* b2,
                   const float* ab, void* out, float* part, int8_t* assign, int B, int H,
-                  int W, int C,
-                  int I, int heads, int fold_h, int fold_w, int ph, int pw, int G,
-                  int stop, int nf, int* occupancy, void* stream) {
+                  int W, int C, int I, int heads, int fold_h, int fold_w, int ph, int pw,
+                  int G, int tc, int stop, int nf, int* occupancy, void* stream) {
 #define ASY_PREFIX(S, NF)                                                                  \
   launch<T, S, NF>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign, nullptr,      \
-                   nullptr, nullptr, B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G,     \
+                   nullptr, nullptr, B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, tc, \
                    occupancy, stream)
   if (occupancy == nullptr) return (int)cudaErrorInvalidValue;
   if (!nf) {
@@ -512,6 +605,50 @@ int launch_prefix(const void* x, const float* stats, const void* wf, const float
   return (int)cudaErrorInvalidValue;
 }
 
+// K2's layout for a region of rh x rw tokens split over G CTAs (elements of
+// esz bytes: 2 bf16, 4 f32), with the card's shared-memory limit per block
+template <typename T>
+bool fits(int C, int I, int heads, int rh, int rw, int ph, int pw, int G, size_t* bytes) {
+  int dev = 0, optin = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess)
+    return false;
+  const Geo g = make_geo<T>(1, rh, rw, C, I, heads, 1, 1, ph, pw, G, 0);
+  *bytes = smem_layout(g, sizeof(T)).bytes;
+  return *bytes <= (size_t)optin;
+}
+
+template <typename T>
+int groups(int C, int I, int heads, int rh, int rw, int ph, int pw, int least) {
+  if (C <= 0 || heads <= 0 || I % heads) return -1;
+  size_t bytes = 0;
+  for (int G = std::max(1, least); G <= std::min(8, heads); ++G)
+    if (heads % G == 0 && fits<T>(C, I, heads, rh, rw, ph, pw, G, &bytes)) return G;
+  return -1;
+}
+
+// out: [dynamic shared memory bytes, CTAs per SM, registers per thread]
+template <typename T>
+int info(int C, int I, int heads, int rh, int rw, int ph, int pw, int G, int* out) {
+  size_t bytes = 0;
+  if (C <= 0 || heads <= 0 || I % heads || G <= 0 || heads % G ||
+      !fits<T>(C, I, heads, rh, rw, ph, pw, G, &bytes))
+    return (int)cudaErrorInvalidValue;
+  const auto kernel = mixer_block_kernel<T, kFull, false>;
+  cudaError_t e = asy::set_smem(kernel, bytes);
+  int per_sm = 0;
+  cudaFuncAttributes attr = {};
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = (int)bytes;
+  out[1] = per_sm;
+  out[2] = attr.numRegs;
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -522,10 +659,10 @@ int mixer_block_bf16(const void* x, const float* stats, const void* wf,
                      const void* w2, const float* b2, const float* ab, void* out,
                      float* part, int8_t* assign, void* cbest, void* crep, void* oc,
                      int B, int H, int W, int C, int I, int heads, int fold_h,
-                     int fold_w, int ph, int pw, int G, void* stream) {
+                     int fold_w, int ph, int pw, int G, int tc, void* stream) {
   return launch<__nv_bfloat16, kFull, false>(x, stats, wf, bf, wv, bv, w2, b2, ab, out,
                                              part, assign, cbest, crep, oc, B, H, W, C, I,
-                                             heads, fold_h, fold_w, ph, pw, G, nullptr,
+                                             heads, fold_h, fold_w, ph, pw, G, tc, nullptr,
                                              stream);
 }
 
@@ -534,10 +671,10 @@ int mixer_block_f32(const void* x, const float* stats, const void* wf,
                     const void* w2, const float* b2, const float* ab, void* out,
                     float* part, int8_t* assign, void* cbest, void* crep, void* oc,
                     int B, int H, int W, int C, int I, int heads, int fold_h,
-                    int fold_w, int ph, int pw, int G, void* stream) {
+                    int fold_w, int ph, int pw, int G, int tc, void* stream) {
   return launch<float, kFull, false>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part,
                                      assign, cbest, crep, oc, B, H, W, C, I, heads, fold_h,
-                                     fold_w, ph, pw, G, nullptr, stream);
+                                     fold_w, ph, pw, G, tc, nullptr, stream);
 }
 
 // The ablation's prefixes; `occupancy` receives (this launch's CTAs per SM,
@@ -549,10 +686,10 @@ int mixer_block_ablate_bf16(const void* x, const float* stats, const void* wf,
                             const void* w2, const float* b2, const float* ab, void* out,
                             float* part, int8_t* assign, int B, int H, int W, int C,
                             int I, int heads, int fold_h, int fold_w, int ph, int pw, int G,
-                            int stop, int nf, int* occupancy, void* stream) {
+                            int tc, int stop, int nf, int* occupancy, void* stream) {
   return launch_prefix<__nv_bfloat16>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign,
-                                      B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, stop,
-                                      nf, occupancy, stream);
+                                      B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, tc,
+                                      stop, nf, occupancy, stream);
 }
 
 int mixer_block_ablate_f32(const void* x, const float* stats, const void* wf,
@@ -560,10 +697,28 @@ int mixer_block_ablate_f32(const void* x, const float* stats, const void* wf,
                            const void* w2, const float* b2, const float* ab, void* out,
                            float* part, int8_t* assign, int B, int H, int W, int C,
                            int I, int heads, int fold_h, int fold_w, int ph, int pw, int G,
-                           int stop, int nf, int* occupancy, void* stream) {
+                           int tc, int stop, int nf, int* occupancy, void* stream) {
   return launch_prefix<float>(x, stats, wf, bf, wv, bv, w2, b2, ab, out, part, assign, B, H,
-                              W, C, I, heads, fold_h, fold_w, ph, pw, G, stop, nf, occupancy,
-                              stream);
+                              W, C, I, heads, fold_h, fold_w, ph, pw, G, tc, stop, nf,
+                              occupancy, stream);
+}
+
+// CTAs per region to launch with: the smallest divisor G of heads (G <= 8,
+// the portable cluster size), at least `least`, whose layout fits in the
+// card's shared memory; -1 if none does.  rh x rw: the region's tokens;
+// esz: 2 (bf16) or 4 (f32).
+int mixer_block_groups(int esz, int C, int I, int heads, int rh, int rw, int ph, int pw,
+                       int least) {
+  return esz == 2 ? groups<__nv_bfloat16>(C, I, heads, rh, rw, ph, pw, least)
+                  : groups<float>(C, I, heads, rh, rw, ph, pw, least);
+}
+
+// K2 as launched at that geometry with G CTAs per region: out = [dynamic
+// shared memory bytes, CTAs per SM, registers per thread]
+int mixer_block_info(int esz, int C, int I, int heads, int rh, int rw, int ph, int pw, int G,
+                     int* out) {
+  return esz == 2 ? info<__nv_bfloat16>(C, I, heads, rh, rw, ph, pw, G, out)
+                  : info<float>(C, I, heads, rh, rw, ph, pw, G, out);
 }
 
 }  // extern "C"

@@ -17,7 +17,15 @@
 //   invc [M][hpc]  center inverse norms
 //   cn   [M][Dg]   normalised centers, rounded
 //   fs   [kChunk][DP] feat of a chunk of tokens, DP = Dg + kLanes
+//
+// feat runs on tensor cores (feat_chunk_mma) in bf16 when C % 16 == 0 and
+// the head width D % 8 == 0 (so every head grouping's Dg = hpc*D is a
+// multiple of 8 and K2, K6 and K6r take the same path), else as f32 FMA
+// chains on CUDA cores (feat_chunk).  Either way the k order is fixed, so
+// every caller gets the same bits for the same (token, column).
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -26,34 +34,78 @@ namespace mix {
 
 constexpr int kChunk = 32;  // tokens per sweep chunk
 constexpr int kLanes = 8;   // lanes per (token, head) in the assignment
-constexpr int kSplit = 8;   // fixed token splits of the aggregation
+constexpr int kSplit = 4;   // fixed token splits of the aggregation
 
 __device__ __forceinline__ float sigmoid(float v) { return 1.f / (1.f + expf(-v)); }
 
-// A. The region's centers for the block's columns: adaptive-average pool of
-// the normalised input in INPUT space, then the projections with the
-// block's fc1/fc_v columns and the per-head inverse norms.  `xin(n, c)` is
-// the rounded normalised input of region token n; `wcol(c, j)` and
-// `vcol(c, j)` the fc1 and fc_v weights of column col0 + j; bf, bv point at
-// column col0.  Ends with a barrier.
-template <typename T, typename XIN, typename WCOL, typename VCOL>
-__device__ void project_centers(XIN xin, WCOL wcol, VCOL vcol, const float* bf,
-                                const float* bv, int C, int Dg, int D, int hpc, int M,
-                                int rh, int rw, int ph, int pw, float* cin, float* crep,
-                                float* vc, float* invc) {
+// Whether feat runs on tensor cores (feat_chunk_mma) for T, C channels and
+// head width D: the one test K2's and K6/K6r's launchers take, so that all
+// three build the same bits (ops/kernels.py::mixer_feat_on_tensor_cores
+// states it for the wrapper, and K2 refuses a wrapper that disagrees).
+template <typename T>
+inline bool feat_on_tc(int C, int D) {
+  return std::is_same<T, __nv_bfloat16>::value && C % 16 == 0 && D % 8 == 0;
+}
+
+// A1. The pooled centers cin[m][c] = rnd(adaptive-average pool of the
+// normalised input over proposal window m), in INPUT space, for the
+// channels [part*C/parts, (part+1)*C/parts) (all with parts = 1: a cluster
+// splits the channels over its CTAs and exchanges the rows).  `xin(n, c)`
+// is the rounded normalised input of region token n.  The pooling spreads
+// over the whole block: task (m, r, c) sums rows r, r + S, ... of window m
+// (channel c fastest, so neighbouring threads read neighbouring bytes) into
+// `scratch` (at least kChunk * (D + kLanes) floats), then the S partial
+// sums of each (m, c) are added in order.  S follows from the geometry and
+// the head width alone (not from how many heads or channels a block takes),
+// so every caller gets the same bits.  Ends with a barrier.
+template <typename T, typename XIN>
+__device__ void pool_centers(XIN xin, int C, int D, int M, int rh, int rw, int ph, int pw,
+                             float* scratch, float* cin, int part, int parts) {
   const int tid = threadIdx.x, nth = blockDim.x;
-  for (int e = tid; e < M * C; e += nth) {
-    const int m = e / C, c = e % C;
+  const int S = max(1, min(min(rh / ph, 16), kChunk * (D + kLanes) / (M * C)));
+  const int c0 = part * C / parts, cw = (part + 1) * C / parts - c0;
+  for (int e = tid; e < M * S * cw; e += nth) {
+    const int c = c0 + e % cw, r = (e / cw) % S, m = e / (cw * S);
     const int pi = m / pw, pj = m % pw;
     const int lh = (pi * rh) / ph, hh = ((pi + 1) * rh + ph - 1) / ph;
     const int lw = (pj * rw) / pw, hw = ((pj + 1) * rw + pw - 1) / pw;
     const float wgt = rnd<T>(__fmul_rn(1.f / (hh - lh), 1.f / (hw - lw)));
     float acc = 0.f;
-    for (int i = lh; i < hh; ++i)
+    for (int i = lh + r; i < hh; i += S) {
+#pragma unroll 4
       for (int j = lw; j < hw; ++j) acc = __fmaf_rn(wgt, xin(i * rw + j, c), acc);
-    cin[e] = rnd<T>(acc);
+    }
+    if (S == 1)
+      cin[m * C + c] = rnd<T>(acc);
+    else
+      scratch[e] = acc;
   }
   __syncthreads();
+  if (S == 1) return;
+  for (int e = tid; e < M * cw; e += nth) {
+    const int m = e / cw, cc = e % cw;
+    float acc = 0.f;
+    for (int r = 0; r < S; ++r) acc = __fadd_rn(acc, scratch[(m * S + r) * cw + cc]);
+    cin[m * C + c0 + cc] = rnd<T>(acc);
+  }
+  __syncthreads();
+}
+
+// The part (of `parts`, as pool_centers splits them) that pools channel c
+__device__ __forceinline__ int pool_part(int c, int C, int parts) {
+  return ((c + 1) * parts - 1) / C;
+}
+
+// A2. The region's centers for the block's columns from the pooled rows
+// cin: the projections with the block's fc1/fc_v columns and the per-head
+// inverse norms.  `wcol(c, j)` and `vcol(c, j)` are the fc1 and fc_v
+// weights of column col0 + j; bf, bv point at column col0.  Ends with a
+// barrier.
+template <typename WCOL, typename VCOL>
+__device__ void project_centers(WCOL wcol, VCOL vcol, const float* bf, const float* bv, int C,
+                                int Dg, int D, int hpc, int M, const float* cin, float* crep,
+                                float* vc, float* invc) {
+  const int tid = threadIdx.x, nth = blockDim.x;
   for (int e = tid; e < M * Dg; e += nth) {
     const int m = e / Dg, j = e % Dg;
     float af = 0.f, av = 0.f;
@@ -87,11 +139,12 @@ __device__ void normalise_centers(const float* crep, const float* invc, float* c
   __syncthreads();
 }
 
-// B1. feat of the chunk's tokens (xs [kChunk][C] rounded xn, rows 16-byte
-// aligned, C % 4 == 0) for the block's columns: fs[t][j] = xs[t] . wcol(., j)
-// + bf[j].  Thread (tg, j) owns tokens tg + 8k.  The caller syncs after.
-template <typename T, typename WCOL>
-__device__ void feat_chunk(const float* xs, int C, WCOL wcol, const float* bf, int Dg, int DP,
+// B1 on CUDA cores: feat of the chunk's tokens for the block's columns,
+// fs[t][j] = xn[t] . wcol(., j) + bf[j], with `xin(t, c4)` the float4 of
+// rounded xn at token t, channels 4*c4 .. 4*c4 + 3 (C % 4 == 0).  Thread
+// (tg, j) owns tokens tg + 8k.  The caller syncs after.
+template <typename T, typename XIN, typename WCOL>
+__device__ void feat_chunk(XIN xin, int C, WCOL wcol, const float* bf, int Dg, int DP,
                            float* fs) {
   const int C4 = C / 4;
   for (int e = threadIdx.x; e < 8 * Dg; e += blockDim.x) {
@@ -102,13 +155,87 @@ __device__ void feat_chunk(const float* xs, int C, WCOL wcol, const float* bf, i
       const float wb = wcol(4 * c4 + 2, j), wc = wcol(4 * c4 + 3, j);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
-        const float4 xv = reinterpret_cast<const float4*>(xs + (tg + 8 * k) * C)[c4];
+        const float4 xv = xin(tg + 8 * k, c4);
         acc[k] = __fmaf_rn(xv.x, w0, __fmaf_rn(xv.y, wa, __fmaf_rn(xv.z, wb,
                            __fmaf_rn(xv.w, wc, acc[k]))));
       }
     }
 #pragma unroll
     for (int k = 0; k < 4; ++k) fs[(tg + 8 * k) * DP + j] = __fadd_rn(acc[k], bf[j]);
+  }
+}
+
+// B1 on tensor cores (bf16, C % 16 == 0, Dg % 8 == 0): the chunk is two
+// 16-token m-tiles by Dg/8 n-tiles; warp w takes tiles w, w + warps, ...,
+// each a sum over the C/16 k-steps in order, then + bf in f32.
+// `load_a(mt, kk, a)` gives the A fragment of tokens [16mt, 16mt + 16) and
+// channels [16kk, 16kk + 16) of rounded xn; `load_b(nt, kk, b0, b1)` the B
+// fragment of wf rows [16kk, 16kk + 16), columns [8nt, 8nt + 8).  The
+// caller syncs after.
+template <typename LA, typename LB>
+__device__ void feat_chunk_mma(LA load_a, LB load_b, const float* bf, int C, int Dg, int DP,
+                               float* fs) {
+  const int lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  const int g = lane / 4, t = lane % 4;
+  for (int i = threadIdx.x / 32; i < 2 * (Dg / 8); i += warps) {
+    const int mt = i & 1, nt = i >> 1;
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int kk = 0; kk < C / 16; ++kk) {
+      uint32_t a[4], b0, b1;
+      load_a(mt, kk, a);
+      load_b(nt, kk, b0, b1);
+      mma16816(d, a, b0, b1);
+    }
+    const int j = nt * 8 + 2 * t, r = mt * 16 + g;
+    const float c0 = bf[j], c1 = bf[j + 1];
+    fs[r * DP + j] = __fadd_rn(d[0], c0);
+    fs[r * DP + j + 1] = __fadd_rn(d[1], c1);
+    fs[(r + 8) * DP + j] = __fadd_rn(d[2], c0);
+    fs[(r + 8) * DP + j + 1] = __fadd_rn(d[3], c1);
+  }
+}
+
+// Split aggregation of a chunk's nt tokens: split s (of `splits`) takes the
+// tokens t = s (mod splits) in order.  Per (split, head hl, winner m), row
+// (s*hpc + hl)*M + m: the sums of rnd(sim) * xn (acc, C wide; only with
+// kX), of the sims (rsp) and the counts (cntp).  sg[t*hpc + hl] is the
+// winner's sigmoid, arg(t*hpc + hl) its proposal, xin(t, c) rounded xn.
+// Every accumulator has one owner thread, so no barrier is needed inside;
+// the caller sums the splits in order afterwards.
+template <typename T, bool kX, typename XIN, typename ARG>
+__device__ void agg_chunk(XIN xin, const float* sg, ARG arg, int nt, int hpc, int M, int C,
+                          int splits, float* acc, float* rsp, float* cntp) {
+  const int tid = threadIdx.x, nth = blockDim.x;
+  if constexpr (kX) {
+    const float rc = 1.f / C, rh = 1.f / hpc;
+    for (int e = tid; e < splits * hpc * C; e += nth) {
+      int c, hl;
+      const int row = asy::div_small(e, C, rc, c), s = asy::div_small(row, hpc, rh, hl);
+      float* ap = acc + (size_t)row * M * C + c;
+      for (int t = s; t < nt; t += splits) {
+        const int q = t * hpc + hl, m = arg(q);
+        ap[m * C] = fmaf(rnd<T>(sg[q]), xin(t, c), ap[m * C]);
+      }
+    }
+  }
+  for (int e = tid; e < splits * hpc; e += nth) {
+    const int hl = e % hpc, s = e / hpc;
+    for (int t = s; t < nt; t += splits) {
+      const int q = t * hpc + hl, row = e * M + arg(q);
+      rsp[row] += sg[q];
+      cntp[row] += 1.f;
+    }
+  }
+}
+
+// Sums the splits of agg_chunk's per-split rows in order into split 0's
+// (rows of `width` values; n = hpc*M rows a split), rounding with kRound.
+template <typename T, bool kRound>
+__device__ void sum_splits(float* a, int n, int width, int splits) {
+  for (int e = threadIdx.x; e < n * width; e += blockDim.x) {
+    float v = 0.f;
+    for (int s = 0; s < splits; ++s) v += a[(size_t)s * n * width + e];
+    a[e] = kRound ? rnd<T>(v) : v;
   }
 }
 
@@ -138,15 +265,34 @@ struct Winner {
 // to the M normalised centers cn (row stride Dg), first max on beta +
 // alpha*cos (strict >).  All kLanes lanes of the item call it; every lane
 // of the warp must take part (the shuffles use the full mask).
+// A lane's rounded feat values are loaded once (up to kPer of them, D <=
+// kLanes * kPer; wider heads reread them per proposal): the same products
+// in the same order either way.
+constexpr int kPer = 8;
 template <typename T>
 __device__ __forceinline__ Winner assign(const float* f, const float* cn, int Dg, int D, int M,
                                          float alpha, float beta, int sub) {
   const float inv = rnd<T>(rsqrtf(__fadd_rn(head_norm2<T>(f, D, sub), 1e-12f)));
   Winner w{0, 0.f, 0.f, 0.f};
+  const bool held = D <= kLanes * kPer;
+  float fr[kPer];
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int d = sub + k * kLanes;
+    fr[k] = held && d < D ? rnd<T>(f[d]) : 0.f;
+  }
   for (int m = 0; m < M; ++m) {
     const float* cm = cn + m * Dg;
     float raw = 0.f;
-    for (int d = sub; d < D; d += kLanes) raw = __fmaf_rn(cm[d], rnd<T>(f[d]), raw);
+    if (held) {
+#pragma unroll
+      for (int k = 0; k < kPer; ++k) {
+        const int d = sub + k * kLanes;
+        if (d < D) raw = __fmaf_rn(cm[d], fr[k], raw);
+      }
+    } else {
+      for (int d = sub; d < D; d += kLanes) raw = __fmaf_rn(cm[d], rnd<T>(f[d]), raw);
+    }
     raw = lane_sum(raw);
     const float cs = __fmul_rn(raw, inv);
     const float lg = __fmaf_rn(alpha, cs, beta);

@@ -32,9 +32,10 @@
 // What bounds it on the H100: per token ~6*C*I flops (feat recompute, dfeat
 // @ wf^T, xn^T dfeat) plus ~4*C*heads, against 6*C bytes of bf16 traffic
 // (K6r: + 2*C*I + 2*I*(M+1) for the forward remat, and no pack to read):
-// bound by bytes on paper at every nano shape.  This first kernel runs FMA
-// on CUDA cores from shared memory, with short per-(token, head) dot
-// products, so it is bound by latency and shared-memory traffic instead.
+// bound by bytes on paper at every nano shape.  Its feat takes K2's path
+// (tensor cores in bf16, mixer_block.cuh); the other products run FMA on
+// CUDA cores from shared memory, with short per-(token, head) dot products,
+// so it is bound by latency and shared-memory traffic instead.
 //
 // Design.  Two kernels.
 //   1. One block per (sample, region, head group); the caller picks the
@@ -65,6 +66,7 @@
 //   [dWf (C*I) | dWv (C*I) | dW2 (I*C) | dbf (I) | dbv (I)]
 // (each head group writes its own columns / rows).
 #include <algorithm>
+#include <type_traits>
 
 #include "common.cuh"
 #include "mixer_block.cuh"
@@ -80,12 +82,13 @@ struct Geo {
   int B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, N, ph, pw, M;
   int G, hpc, Dg, P, split;  // head groups, heads per group, its columns, hpc*M, splits
   int splitx;                // splits of the xn sums (K6r: K2's kSplit)
+  int tc;                    // feat on tensor cores (K2's path: asy::mix::feat_on_tc)
 };
 
 struct Lay {  // offsets in floats
   size_t xs, gs, fs, dfs, cbs, sg, ag, drw, dn2, rawc, pw, cin, cn, invc, ocb, dagg, dcn,
-      ocw, daggx, aggx, docw, cnt, rsum, drs, icnt, accx, accg, pdwf, pdbf, dcp, wfs, crp,
-      cnr, vcr, invr, red, floats;
+      ocw, daggx, aggx, docw, cnt, rsum, drs, icnt, accx, rsp, cntp, accg, pdwf, pdbf, dcp,
+      wfs, crp, cnr, vcr, invr, red, floats;
 };
 
 // remat: the K6r buffers (the winner's raw product, K2's centers)
@@ -120,6 +123,8 @@ inline Lay layout(const Geo& g, bool remat) {
   L.drs = o;   o += P;
   L.icnt = o;  o += P;
   L.accx = o;  o += (size_t)g.splitx * P * C;
+  L.rsp = o;   o += (size_t)g.splitx * P;
+  L.cntp = o;  o += (size_t)g.splitx * P;
   L.accg = o;  o += (size_t)g.split * P * C;
   L.pdwf = o;  o += C * g.Dg;
   L.pdbf = o;  o += g.Dg;
@@ -187,6 +192,8 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   float* drs = sm + L.drs;      // [P] d rowsum(sim)
   float* icnt = sm + L.icnt;    // [P] 1 / (count + 1)
   float* accx = sm + L.accx;    // [splitx][P][C]
+  float* rsp = sm + L.rsp;      // [splitx][P] split sums of sims
+  float* cntp = sm + L.cntp;    // [splitx][P] split counts
   float* accg = sm + L.accg;    // [split][P][C]
   float* pdwf = sm + L.pdwf;    // [C][Dg] dWf of the group's columns
   float* pdbf = sm + L.pdbf;    // [Dg]
@@ -215,6 +222,34 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   auto norm_in = [&](size_t o) { return rnd<T>((to_f<T>(x[o]) - mu) * rstd); };
   auto wf_at = [&](int c, int j) { return wfs[c * (Dg + 1) + j]; };
   auto wv_at = [&](int c, int j) { return to_f<T>(wv[(size_t)c * I + col0 + j]); };
+  // feat of the chunk in xs: K2's device code, on K2's path (tensor cores
+  // from the same bf16 values, fragments packed from the f32 copies here)
+  auto feat = [&]() {
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+      if (g.tc) {
+        const int gq = (tid % 32) / 4, tq = tid % 4;
+        asy::mix::feat_chunk_mma(
+            [&](int mt, int kk, uint32_t(&a)[4]) {
+              const float* r0 = xs + (mt * 16 + gq) * C + kk * 16 + 2 * tq;
+              const float* r1 = r0 + 8 * C;
+              a[0] = asy::pack_bf16(r0[0], r0[1]);
+              a[1] = asy::pack_bf16(r1[0], r1[1]);
+              a[2] = asy::pack_bf16(r0[8], r0[9]);
+              a[3] = asy::pack_bf16(r1[8], r1[9]);
+            },
+            [&](int nt, int kk, uint32_t& b0, uint32_t& b1) {
+              const float* w = wfs + (kk * 16 + 2 * tq) * (Dg + 1) + nt * 8 + gq;
+              b0 = asy::pack_bf16(w[0], w[Dg + 1]);
+              b1 = asy::pack_bf16(w[8 * (Dg + 1)], w[9 * (Dg + 1)]);
+            },
+            bf + col0, C, Dg, DP, fs);
+        return;
+      }
+    }
+    asy::mix::feat_chunk<T>(
+        [&](int t, int c4) { return reinterpret_cast<const float4*>(xs + t * C)[c4]; }, C,
+        wf_at, bf + col0, Dg, DP, fs);
+  };
   auto load_chunk = [&](int n0, int nt) {
     for (int e = tid; e < kChunk * C; e += kThreads) {
       const int t = e / C, c = e % C;
@@ -246,7 +281,7 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   // (kChunk*hpc items, a multiple of the 32 a pass covers, so every lane of
   // a warp runs the same iterations of the shuffles)
   auto assign_chunk = [&](int n0, int nt, bool record) {
-    asy::mix::feat_chunk<T>(xs, C, wf_at, bf + col0, Dg, DP, fs);
+    feat();
     __syncthreads();
     for (int it = tid / kLanes; it < kChunk * hpc; it += kThreads / kLanes) {
       const int t = it % kChunk, hl = it / kChunk, q = t * hpc + hl;
@@ -269,13 +304,14 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
   for (int e = tid; e < g.splitx * P * C; e += kThreads) accx[e] = 0.f;
   for (int e = tid; e < g.split * P * C; e += kThreads) accg[e] = 0.f;
   for (int e = tid; e < M * C; e += kThreads) cin[e] = 0.f;
-  for (int e = tid; e < P; e += kThreads) cnt[e] = rsum[e] = 0.f;
+  for (int e = tid; e < g.splitx * P; e += kThreads) rsp[e] = cntp[e] = 0.f;
 
   if (kRemat) {  // ---- K2's phase A: the centers of the group's heads ----
     __syncthreads();  // wfs staged
-    asy::mix::project_centers<T>([&](int n, int c) { return norm_in(tok(n) * C + c); },
-                                 wf_at, wv_at, bf + col0, bv + col0, C, Dg, D, hpc, M,
-                                 g.rh, g.rw, g.ph, g.pw, cin, crp, vcr, invr_c);
+    asy::mix::pool_centers<T>([&](int n, int c) { return norm_in(tok(n) * C + c); }, C, D, M,
+                              g.rh, g.rw, g.ph, g.pw, fs, cin, 0, 1);
+    asy::mix::project_centers(wf_at, wv_at, bf + col0, bv + col0, C, Dg, D, hpc, M, cin, crp,
+                              vcr, invr_c);
     asy::mix::normalise_centers<T>(crp, invr_c, cnr, M, Dg, D, hpc);
   }
 
@@ -296,28 +332,11 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
         cin[e] = a;
       }
     }
-    for (int e = tid; e < P; e += kThreads) {
-      const int hl = e / M, m = e % M;
-      float s = rsum[e], n = cnt[e];
-      for (int t = 0; t < nt; ++t) {
-        const int q = t * hpc + hl;
-        if ((int)ag[q] == m) {
-          s += sg[q];
-          n += 1.f;
-        }
-      }
-      rsum[e] = s;
-      cnt[e] = n;
-    }
-    // split s takes the chunk's tokens t = s mod splits (K6r: K2's order)
-    for (int e = tid; e < g.splitx * hpc * C; e += kThreads) {
-      const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
-      float* ax = accx + (size_t)(s * P + hl * M) * C + c;
-      for (int t = s; t < nt; t += g.splitx) {
-        const int q = t * hpc + hl, m = (int)ag[q];
-        ax[m * C] = fmaf(rnd<T>(sg[q]), xs[t * C + c], ax[m * C]);
-      }
-    }
+    // counts, sums of sims and the sim-weighted sums of xn in fixed token
+    // splits (K6r: K2's kSplit, so K2's order)
+    asy::mix::agg_chunk<T, true>([&](int t, int c) { return xs[t * C + c]; }, sg,
+                                 [&](int q) { return (int)ag[q]; }, nt, hpc, M, C, g.splitx,
+                                 accx, rsp, cntp);
     for (int e = tid; e < g.split * hpc * C; e += kThreads) {
       const int c = e % C, hl = (e / C) % hpc, s = e / (C * hpc);
       float* ay = accg + (size_t)(s * P + hl * M) * C + c;
@@ -338,7 +357,16 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
     docw[e] = rnd<T>(q);
   }
   for (int e = tid; e < M * C; e += kThreads) cin[e] = rnd<T>(cin[e]);
-  for (int e = tid; e < P; e += kThreads) icnt[e] = 1.f / (cnt[e] + 1.f);
+  for (int e = tid; e < P; e += kThreads) {
+    float rsv = 0.f, n = 0.f;
+    for (int sp = 0; sp < g.splitx; ++sp) {
+      rsv += rsp[sp * P + e];
+      n += cntp[sp * P + e];
+    }
+    rsum[e] = rsv;
+    cnt[e] = n;
+    icnt[e] = 1.f / (n + 1.f);
+  }
   if (!kRemat) {
     for (int e = tid; e < P * D; e += kThreads) {
       const int hm = e / D, d = e % D;
@@ -435,7 +463,7 @@ mixer_bwd_kernel(const T* __restrict__ x, const T* __restrict__ gout,
     if (kRemat) {
       assign_chunk(n0, nt, false);
     } else {
-      asy::mix::feat_chunk<T>(xs, C, wf_at, bf + col0, Dg, DP, fs);
+      feat();
     }
     __syncthreads();
     // per (token, head), kLanes lanes each.  kChunk*hpc items is a multiple
@@ -667,7 +695,7 @@ inline Geo make_geo(int B, int H, int W, int C, int I, int heads, int fold_h, in
   const int rh = H / fold_h, rw = W / fold_w, D = I / heads, hpc = heads / G;
   const int split = std::min(8, std::max(1, kThreads / (hpc * C)));
   return Geo{B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, rh * rw, ph, pw, ph * pw,
-             G, hpc, hpc * D, hpc * ph * pw, split, remat ? asy::mix::kSplit : split};
+             G, hpc, hpc * D, hpc * ph * pw, split, remat ? asy::mix::kSplit : split, 0};
 }
 
 template <typename T, bool kRemat>
@@ -682,7 +710,8 @@ int launch(const void* x, const void* gout, const float* stats, const void* wf,
       H % fold_h || W % fold_w || ph <= 0 || pw <= 0 || ph * pw > 127 || G <= 0 ||
       heads % G || tiles != (H * W + kTile - 1) / kTile)
     return (int)cudaErrorInvalidValue;
-  const Geo g = make_geo(B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, kRemat);
+  Geo g = make_geo(B, H, W, C, I, heads, fold_h, fold_w, ph, pw, G, kRemat);
+  g.tc = asy::mix::feat_on_tc<T>(C, g.D);
   const int M = g.M;
   if (g.rh < ph || g.rw < pw) return (int)cudaErrorInvalidValue;
   const Lay L = layout(g, kRemat);

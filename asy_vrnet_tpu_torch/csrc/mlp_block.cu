@@ -8,20 +8,20 @@
 // What bounds it on the H100: 4*C*hid flops per token against 4*C bytes of
 // bf16 traffic (x in, out back), i.e. hid = 128..640 flop/byte, around the
 // bf16 tensor-core ridge (~295 flop/byte): the least time is set by bytes
-// where hid < 295 (nano stages 0-1, p3) and by operations above.  Unfused, the (tokens x hid)
-// hidden plane would cross device memory twice.  Design: loop over the
-// hidden width in 32-wide slices (weights stream from L2 per slice), so the
-// hidden activations never reach device memory.
+// where hid < 295 (nano stages 0-1, p3) and by operations above.  Unfused,
+// the (tokens x hid) hidden plane would cross device memory twice.  In
+// practice a warp's chain of dependent mma.sync is the limit: 16 tokens
+// through every hidden unit is ~C*hid/64 products one after another.
 //
 // Two paths.  bf16 with C a multiple of 16 (up to 160), hid a multiple of 8
-// and 16-byte aligned weights, the main path, runs
-// on tensor cores (mma.sync m16n8k16, f32 accumulation): each warp owns 16
-// tokens, keeps their normalised A-fragments in registers for the whole
-// hidden loop, and turns the first product's accumulators (after bias, GELU
-// and the bf16 round) directly into the second product's A-fragments, so the
-// hidden slice never leaves registers; W1/W2 slices of 64 hidden units are
-// staged transposed in shared memory, rows padded so the B-fragment loads
-// are conflict-free.  Everything else (f32, other widths) runs as f32 FMA on
+// and 16-byte aligned operands, the main path, runs on tensor cores
+// (mma.sync m16n8k16, f32 accumulation; mlp_block_mma_kernel below).  Its
+// accumulators are sized to C (a template on C/8), so registers follow the
+// width; a CTA of 4 warps takes 64, 32 or 16 tokens, chosen by the caller
+// from the token count so that the grid covers the card where the tokens
+// allow, and below 64 tokens its warps split the hidden units and add their
+// partial fc2 sums in a fixed order; the weight slices are double-buffered
+// with cp.async.  Everything else (f32, other widths) runs as f32 FMA on
 // CUDA cores: one block per 32 tokens keeps the normalised tile, the f32
 // output accumulators and the hidden slice in shared memory, with 4-token x
 // 4-channel register reuse (float4 shared loads).
@@ -38,6 +38,8 @@
 // accumulate in f32, and the residual sum is rounded once.  GELU is the exact
 // erf form (CUDA erff); the TPU kernel uses an Abramowitz-Stegun polynomial
 // (|error| <= 1.5e-7), far below bf16 resolution.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -165,51 +167,71 @@ int launch(const void* x, const float* stats, const void* w1, const float* b1,
   return (int)cudaGetLastError();
 }
 
-// ---- tensor-core path (bf16, C % 16 == 0, C <= kMaxC) ----
-constexpr int kWarps = 4;
-constexpr int kMmaTokens = 16 * kWarps;  // tokens per block
-constexpr int kMmaHidden = 64;           // hidden slice per iteration
+// ---- tensor-core path (bf16, C % 16 == 0, C <= kMaxC, hid % 8 == 0) ----
+constexpr int kWarps = 4;       // per CTA
+constexpr int kSlice = 64;      // hidden units staged per slice
 constexpr int kMaxC = 160;
+constexpr int kS1 = kSlice + 8;  // W1 slice row stride (bf16): ldmatrix rows on distinct banks
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
+// Shared memory of one slice buffer (bf16 elements): W1 rows [C][kS1]
+// (columns j0 .. j0 + kSlice of each channel's row), W2 rows [kSlice][C + 8].
+__host__ __device__ constexpr int slice_elems(int C) { return C * kS1 + kSlice * (C + 8); }
 
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Fragment layout (PTX m16n8k16): lane = 4*g + t.  A regs {0,1,2,3} hold
-// (row g, k 2t..2t+1), (row g+8, same k), (row g, k+8), (row g+8, k+8);
-// B regs {0,1} hold (k 2t..2t+1, n g) and (k+8, n g); C/D hold (row g,
-// n 2t..2t+1) and (row g+8, same n).
-template <bool kZ1>
-__global__ void __launch_bounds__(kWarps * 32)
+// kNC: the accumulators' n-tiles (C/8 at most kNC), so that registers
+// follow the width.  A CTA takes `tokens` = 16 * MT tokens (MT m-tiles) and
+// splits each hidden slice over HS = 4 / MT warps: warp w owns m-tile w % MT
+// and the slice's hidden units [w / MT * 64 / HS, ...), 32 at a time (16
+// with HS = 4).  It
+// keeps its tokens' normalised A-fragments in registers and turns the first
+// product's accumulators (after bias, GELU and the bf16 round) directly
+// into the second product's A-fragment, so the hidden activations never
+// leave registers.  The W1/W2 slices are staged with cp.async, two buffers:
+// slice s + 1 loads while slice s multiplies, one barrier a slice; B
+// fragments come from the row-major slices by ldmatrix.trans.  The HS
+// partial fc2 sums of a token are added in warp order through shared
+// memory (with HS = 1 the sum is the one warp's, the order of a single
+// hidden loop).
+template <int kNC, bool kZ1>
+__global__ void __launch_bounds__(kWarps * 32, kNC <= 10 ? 4 : 1)
 mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
                      const float* __restrict__ stats,
                      const __nv_bfloat16* __restrict__ w1,
                      const float* __restrict__ b1,
                      const __nv_bfloat16* __restrict__ w2,
                      const float* __restrict__ b2, __nv_bfloat16* __restrict__ out,
-                     __nv_bfloat16* __restrict__ z1, int ntok, int hw, int C, int hid) {
+                     __nv_bfloat16* __restrict__ z1, int ntok, int hw, int C, int hid,
+                     int tokens) {
+  using asy::mma16816;
+  using asy::pack_bf16;
   extern __shared__ float4 smem4[];
-  const int s1 = C + 8, s2 = kMmaHidden + 8;  // padded rows (bf16 elements)
-  __nv_bfloat16* w1t = reinterpret_cast<__nv_bfloat16*>(smem4);  // [kMmaHidden][s1]
-  __nv_bfloat16* w2t = w1t + kMmaHidden * s1;                     // [C][s2]
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = blockIdx.x * kMmaTokens + (threadIdx.x / 32) * 16;
-  const int rows[2] = {r0 + g, r0 + g + 8};
+  __nv_bfloat16* buf = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int s2 = C + 8, per = slice_elems(C);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int MT = tokens / 16, HS = kWarps / MT, part = kSlice / HS;
+  const int mt = warp % MT, hs = warp / MT;
+  const int t0 = blockIdx.x * tokens;
+  const int rows[2] = {t0 + mt * 16 + g, t0 + mt * 16 + g + 8};
+  const int slices = (hid + kSlice - 1) / kSlice;
+  // stage slice s into buffer s % 2: 16-byte copies, hidden units past hid
+  // zero filled (hid % 8 == 0: a copy is all in or all out)
+  auto stage = [&](int s) {
+    __nv_bfloat16* w1s = buf + (s % 2) * per;
+    __nv_bfloat16* w2s = w1s + C * kS1;
+    const int j0 = s * kSlice;
+    for (int e = threadIdx.x; e < C * (kSlice / 8); e += blockDim.x) {
+      const int c = e / (kSlice / 8), j = (e % (kSlice / 8)) * 8;
+      const bool ok = j0 + j < hid;
+      asy::cp_async<16>(w1s + c * kS1 + j, w1 + (ok ? (size_t)c * hid + j0 + j : 0), ok);
+    }
+    for (int e = threadIdx.x; e < kSlice * (C / 8); e += blockDim.x) {
+      const int j = e / (C / 8), c = (e % (C / 8)) * 8;
+      const bool ok = j0 + j < hid;
+      asy::cp_async<16>(w2s + j * s2 + c, w2 + (ok ? (size_t)(j0 + j) * C + c : 0), ok);
+    }
+    asy::cp_async_commit();
+  };
+  stage(0);
+
   float mu[2], rs[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -225,9 +247,9 @@ mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
                      (__bfloat162float(v.y) - mu[i]) * rs[i]);
   };
   const int ksteps = C / 16, ntiles = C / 8;
-  uint32_t xa[kMaxC / 16][4];
+  uint32_t xa[kNC / 2][4];
 #pragma unroll
-  for (int kk = 0; kk < kMaxC / 16; ++kk) {
+  for (int kk = 0; kk < kNC / 2; ++kk) {
     if (kk < ksteps) {
       const int c = kk * 16 + 2 * t;
       xa[kk][0] = norm_pair(0, c);
@@ -236,107 +258,138 @@ mlp_block_mma_kernel(const __nv_bfloat16* __restrict__ x,
       xa[kk][3] = norm_pair(1, c + 8);
     }
   }
-  float y[kMaxC / 8][4];
+  float y[kNC][4];
 #pragma unroll
-  for (int nc = 0; nc < kMaxC / 8; ++nc) y[nc][0] = y[nc][1] = y[nc][2] = y[nc][3] = 0.f;
+  for (int nc = 0; nc < kNC; ++nc) y[nc][0] = y[nc][1] = y[nc][2] = y[nc][3] = 0.f;
 
-  for (int j0 = 0; j0 < hid; j0 += kMmaHidden) {
-    __syncthreads();  // previous slice fully consumed
-    // 16-byte loads: 8 hidden units of one W1 row, 8 channels of one W2 row
-    for (int e = threadIdx.x; e < C * (kMmaHidden / 8); e += kWarps * 32) {
-      const int c = e / (kMmaHidden / 8), j = (e % (kMmaHidden / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + j < hid) v = *reinterpret_cast<const uint4*>(w1 + (size_t)c * hid + j0 + j);
-      const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&v);
+  for (int s = 0; s < slices; ++s) {
+    asy::cp_async_wait<0>();
+    __syncthreads();  // slice s staged; every warp is done with slice s - 1
+    if (s + 1 < slices) stage(s + 1);
+    const __nv_bfloat16* w1s = buf + (s % 2) * per;
+    const __nv_bfloat16* w2s = w1s + C * kS1;
+    // kN n-tiles (8 hidden units each) of the first product at a time: 4
+    // where the warp owns 32 or more of the slice (independent accumulator
+    // chains for the tensor cores' latency), else 2
+    auto step = [&](int h, auto n_tag) {
+      constexpr int kN = decltype(n_tag)::value;
+      float z[kN][4] = {};
 #pragma unroll
-      for (int q = 0; q < 8; ++q) w1t[(j + q) * s1 + c] = pv[q];
-    }
-    for (int e = threadIdx.x; e < kMmaHidden * (C / 8); e += kWarps * 32) {
-      const int j = e / (C / 8), c = (e % (C / 8)) * 8;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (j0 + j < hid) v = *reinterpret_cast<const uint4*>(w2 + (size_t)(j0 + j) * C + c);
-      const __nv_bfloat16* pv = reinterpret_cast<const __nv_bfloat16*>(&v);
+      for (int kk = 0; kk < kNC / 2; ++kk) {
+        if (kk < ksteps) {
 #pragma unroll
-      for (int q = 0; q < 8; ++q) w2t[(c + q) * s2 + j] = pv[q];
-    }
-    __syncthreads();
-    float z[kMmaHidden / 8][4] = {};
-#pragma unroll
-    for (int kk = 0; kk < kMaxC / 16; ++kk) {
-      if (kk < ksteps) {
-#pragma unroll
-        for (int nt = 0; nt < kMmaHidden / 8; ++nt) {
-          const __nv_bfloat16* bp = w1t + (nt * 8 + g) * s1 + kk * 16 + 2 * t;
-          mma16816(z[nt], xa[kk], ld32(bp), ld32(bp + 8));
+          for (int n = 0; n < kN; ++n) {
+            uint32_t b0, b1v;
+            asy::ldmatrix_b(b0, b1v, w1s + kk * 16 * kS1 + h + n * 8, kS1);
+            mma16816(z[n], xa[kk], b0, b1v);
+          }
         }
       }
-    }
-    // bias + GELU + bf16 round: accumulator tiles (2ks, 2ks+1) become the
-    // A-fragment of hidden k-step ks
-    uint32_t ha[kMmaHidden / 16][4];
+      // bias + GELU + bf16 round: accumulator tiles (2ks, 2ks+1) become the
+      // A-fragment of hidden k-step ks
+      uint32_t ha[kN / 2][4];
 #pragma unroll
-    for (int ks = 0; ks < kMmaHidden / 16; ++ks) {
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int nt = 2 * ks + h2, j = j0 + nt * 8 + 2 * t;
+      for (int n = 0; n < kN; ++n) {
+        const int j = s * kSlice + h + n * 8 + 2 * t;
         const float c0 = j < hid ? b1[j] : 0.f, c1 = j + 1 < hid ? b1[j + 1] : 0.f;
-        ha[ks][2 * h2] = pack_bf16(gelu_erf(z[nt][0] + c0), gelu_erf(z[nt][1] + c1));
-        ha[ks][2 * h2 + 1] = pack_bf16(gelu_erf(z[nt][2] + c0), gelu_erf(z[nt][3] + c1));
+        ha[n / 2][2 * (n % 2)] = pack_bf16(gelu_erf(z[n][0] + c0), gelu_erf(z[n][1] + c1));
+        ha[n / 2][2 * (n % 2) + 1] = pack_bf16(gelu_erf(z[n][2] + c0), gelu_erf(z[n][3] + c1));
         if (kZ1 && j < hid) {  // hid % 8 == 0: j and j + 1 are both in range
 #pragma unroll
           for (int i = 0; i < 2; ++i) {
             if (rows[i] < ntok)
               *reinterpret_cast<uint32_t*>(z1 + (size_t)rows[i] * hid + j) =
-                  pack_bf16(z[nt][2 * i] + c0, z[nt][2 * i + 1] + c1);
+                  pack_bf16(z[n][2 * i] + c0, z[n][2 * i + 1] + c1);
           }
         }
       }
-    }
 #pragma unroll
-    for (int nc = 0; nc < kMaxC / 8; ++nc) {
-      if (nc < ntiles) {
+      for (int nc = 0; nc < kNC; ++nc) {
+        if (nc < ntiles) {
 #pragma unroll
-        for (int ks = 0; ks < kMmaHidden / 16; ++ks) {
-          const __nv_bfloat16* bp = w2t + (nc * 8 + g) * s2 + ks * 16 + 2 * t;
-          mma16816(y[nc], ha[ks], ld32(bp), ld32(bp + 8));
+          for (int ks = 0; ks < kN / 2; ++ks) {
+            uint32_t b0, b1v;
+            asy::ldmatrix_b(b0, b1v, w2s + (h + ks * 16) * s2 + nc * 8, s2);
+            mma16816(y[nc], ha[ks], b0, b1v);
+          }
         }
       }
+    };
+    if (part >= 32) {
+      for (int h = hs * part; h < (hs + 1) * part; h += 32)
+        step(h, std::integral_constant<int, 4>{});
+    } else {
+      step(hs * part, std::integral_constant<int, 2>{});
     }
   }
-  // out = x + (y + b2), rounded once
+  // the warps' fc2 partials [warp][16][C] (f32) over the slice buffers
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem4);
 #pragma unroll
-  for (int nc = 0; nc < kMaxC / 8; ++nc) {
+  for (int nc = 0; nc < kNC; ++nc) {
     if (nc < ntiles) {
       const int c = nc * 8 + 2 * t;
-      const float c0 = b2[c], c1 = b2[c + 1];
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        if (rows[i] < ntok) {
-          const size_t o = (size_t)rows[i] * C + c;
-          const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(x + o);
-          *reinterpret_cast<uint32_t*>(out + o) =
-              pack_bf16(__bfloat162float(v.x) + (y[nc][2 * i] + c0),
-                        __bfloat162float(v.y) + (y[nc][2 * i + 1] + c1));
-        }
-      }
+      for (int i = 0; i < 2; ++i)
+        *reinterpret_cast<float2*>(red + ((size_t)warp * 16 + g + 8 * i) * C + c) =
+            make_float2(y[nc][2 * i], y[nc][2 * i + 1]);
     }
+  }
+  __syncthreads();
+  // out = x + (sum of the partials in warp order + b2), rounded once
+  for (int e = threadIdx.x; e < tokens * (C / 2); e += blockDim.x) {
+    const int r = e / (C / 2), c = 2 * (e % (C / 2)), row = t0 + r;
+    if (row >= ntok) continue;
+    const int m = r / 16, rr = r % 16;
+    float2 v = *reinterpret_cast<const float2*>(red + ((size_t)m * 16 + rr) * C + c);
+    for (int k = 1; k < HS; ++k) {
+      const float2 p = *reinterpret_cast<const float2*>(
+          red + ((size_t)(k * MT + m) * 16 + rr) * C + c);
+      v.x += p.x;
+      v.y += p.y;
+    }
+    const size_t o = (size_t)row * C + c;
+    const __nv_bfloat162 xv = *reinterpret_cast<const __nv_bfloat162*>(x + o);
+    *reinterpret_cast<uint32_t*>(out + o) = pack_bf16(__bfloat162float(xv.x) + (v.x + b2[c]),
+                                                      __bfloat162float(xv.y) + (v.y + b2[c + 1]));
   }
 }
 
+// the accumulator width of C's instantiation: the smallest kNC >= C / 8
+template <bool kZ1> struct MmaKernel {
+  using Fn = decltype(&mlp_block_mma_kernel<2, kZ1>);
+  static Fn pick(int C) {
+    const int nc = C / 8;
+    return nc <= 2    ? mlp_block_mma_kernel<2, kZ1>
+           : nc <= 4  ? mlp_block_mma_kernel<4, kZ1>
+           : nc <= 8  ? mlp_block_mma_kernel<8, kZ1>
+           : nc <= 10 ? mlp_block_mma_kernel<10, kZ1>
+           : nc <= 16 ? mlp_block_mma_kernel<16, kZ1>
+                      : mlp_block_mma_kernel<20, kZ1>;
+  }
+};
+
+inline bool mma_shape(int C, int hid) { return C % 16 == 0 && C <= kMaxC && hid % 8 == 0; }
+// two slice buffers (they also hold the warps' partials: 4 * 16 * C floats)
+inline size_t mma_smem(int C) { return 2 * sizeof(__nv_bfloat16) * (size_t)slice_elems(C); }
+inline bool mma_tokens(int tokens) { return tokens == 16 || tokens == 32 || tokens == 64; }
+
+// tokens per CTA: 16, 32 or 64
 template <bool kZ1>
 int launch_mma(const void* x, const float* stats, const void* w1, const float* b1,
                const void* w2, const float* b2, void* out, void* z1, int B, int HW, int C,
-               int hid, void* stream) {
-  const size_t smem = sizeof(__nv_bfloat16) *
-                      (size_t)(kMmaHidden * (C + 8) + C * (kMmaHidden + 8));
-  cudaError_t e = asy::set_smem(mlp_block_mma_kernel<kZ1>, smem);
+               int hid, int tokens, void* stream) {
+  if (!mma_tokens(tokens)) return (int)cudaErrorInvalidValue;
+  const auto kernel = MmaKernel<kZ1>::pick(C);
+  const size_t smem = mma_smem(C);
+  cudaError_t e = asy::set_smem(kernel, smem);
   if (e != cudaSuccess) return (int)e;
   const int ntok = B * HW;
-  const int grid = (ntok + kMmaTokens - 1) / kMmaTokens;
-  mlp_block_mma_kernel<kZ1><<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
+  const int grid = (ntok + tokens - 1) / tokens;
+  kernel<<<grid, kWarps * 32, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, stats, (const __nv_bfloat16*)w1, b1,
       (const __nv_bfloat16*)w2, b2, (__nv_bfloat16*)out, (__nv_bfloat16*)z1, ntok, HW, C,
-      hid);
+      hid, tokens);
   return (int)cudaGetLastError();
 }
 
@@ -344,15 +397,24 @@ int launch_mma(const void* x, const float* stats, const void* w1, const float* b
 
 extern "C" {
 
-// z1 may be null (inference, or training without the z1 residual)
+// z1 may be null (inference, or training without the z1 residual).  tokens:
+// tokens per CTA of the tensor-core path (16, 32 or 64), which runs exactly
+// when C % 16 == 0, C <= 160, hid % 8 == 0 and the operands are 16-byte
+// aligned; 0 for the CUDA-core path, which runs otherwise.  A `tokens` that
+// names the other path is refused: it picks the geometry, never the path.
 int mlp_block_bf16(const void* x, const float* stats, const void* w1,
                    const float* b1, const void* w2, const float* b2, void* out, void* z1,
-                   int B, int HW, int C, int hid, void* stream) {
-  const bool aligned = ((uintptr_t)w1 | (uintptr_t)w2) % 16 == 0;
-  if (C % 16 == 0 && C <= kMaxC && hid % 8 == 0 && aligned && B > 0 && HW > 0)
-    return z1 != nullptr
-               ? launch_mma<true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream)
-               : launch_mma<false>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream);
+                   int B, int HW, int C, int hid, int tokens, void* stream) {
+  if (B <= 0 || HW <= 0) return (int)cudaErrorInvalidValue;
+  const bool mma = mma_shape(C, hid) && asy::copy_bytes({(size_t)x, (size_t)w1, (size_t)w2,
+                                                         (size_t)out, (size_t)z1}) == 16;
+  if (mma != (tokens > 0)) return (int)cudaErrorInvalidValue;
+  if (mma) {
+    return z1 != nullptr ? launch_mma<true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid,
+                                            tokens, stream)
+                         : launch_mma<false>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C,
+                                             hid, tokens, stream);
+  }
   return z1 != nullptr
              ? launch<__nv_bfloat16, true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid,
                                            stream)
@@ -362,10 +424,30 @@ int mlp_block_bf16(const void* x, const float* stats, const void* w1,
 
 int mlp_block_f32(const void* x, const float* stats, const void* w1,
                   const float* b1, const void* w2, const float* b2, void* out, void* z1,
-                  int B, int HW, int C, int hid, void* stream) {
+                  int B, int HW, int C, int hid, int tokens, void* stream) {
+  if (tokens != 0) return (int)cudaErrorInvalidValue;
   return z1 != nullptr
              ? launch<float, true>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream)
              : launch<float, false>(x, stats, w1, b1, w2, b2, out, z1, B, HW, C, hid, stream);
+}
+
+// The tensor-core kernel at width C with `tokens` per CTA: out = [dynamic
+// shared memory bytes, CTAs per SM, registers per thread]
+int mlp_block_info(int C, int tokens, int* out) {
+  if (!mma_shape(C, 8) || !mma_tokens(tokens)) return (int)cudaErrorInvalidValue;
+  const auto kernel = MmaKernel<false>::pick(C);
+  const size_t smem = mma_smem(C);
+  cudaError_t e = asy::set_smem(kernel, smem);
+  int per_sm = 0;
+  cudaFuncAttributes attr = {};
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWarps * 32, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = (int)smem;
+  out[1] = per_sm;
+  out[2] = attr.numRegs;
+  return 0;
 }
 
 }  // extern "C"

@@ -296,28 +296,12 @@ constexpr int kGroup = 5;            // channel tiles per dxn accumulator group
 
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
+// Fragments as common.cuh lays them out; A row-major and B stored n-major
+// (k contiguous), so every fragment register is one 32-bit load.
+using asy::mma16816;
+using asy::pack_bf16;
 __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 in, f32 accumulate.  Fragment
-// layout (PTX m16n8k16), lane = 4*g + t: A regs {0,1,2,3} hold (row g, k
-// 2t..2t+1), (row g+8, same k), (row g, k+8), (row g+8, k+8); B regs {0,1}
-// hold (k 2t..2t+1, n g) and (k+8, n g); C/D hold (row g, n 2t..2t+1) and
-// (row g+8, same n).  A row-major and B stored n-major (k contiguous), so
-// every fragment register is one 32-bit load.
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 inline size_t mma_smem_bytes(int C) {

@@ -58,6 +58,11 @@ _GN_EPS = 1e-5
 # mixer_block_bwd_remat, the z1 variants of K1 and K5 are *_z1
 LAUNCHES = {"mixer_block": 0, "mlp_block": 0, "mixer_block_bwd": 0, "mlp_block_bwd": 0,
             "mixer_block_bwd_remat": 0, "mlp_block_z1": 0, "mlp_block_bwd_z1": 0}
+# the same launches of K2 and K1 (either variant) by the path they took: K2's
+# feat on tensor cores ("tc") or CUDA cores ("fma"); K1 on tensor cores with
+# t tokens per CTA ("mma<t>") or on CUDA cores ("fma")
+PATHS = {"mixer_block/tc": 0, "mixer_block/fma": 0, "mlp_block/mma16": 0,
+         "mlp_block/mma32": 0, "mlp_block/mma64": 0, "mlp_block/fma": 0}
 
 
 def _use_bwd_residuals() -> bool:
@@ -578,7 +583,8 @@ def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
     _check("b2", b2, (c,), f32, dev)
     out = torch.empty_like(x)
     regions = fold_h * fold_w
-    g = kernels.mixer_cluster_size(heads, b * regions, dev)
+    g = kernels.mixer_groups(x, wf.shape[1], heads, fold_h, fold_w, proposal_h, proposal_w)
+    tc = kernels.mixer_feat_on_tensor_cores(c, wf.shape[1] // heads, x.dtype)
     part = torch.empty((b, regions * g, 2), dtype=f32, device=dev)
     per_token, centers = _residual_shapes(x, heads, wf.shape[1], fold_h, fold_w,
                                           proposal_h, proposal_w)
@@ -590,8 +596,9 @@ def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
                 torch.empty(centers, dtype=x.dtype, device=dev),
                 torch.empty(centers, dtype=x.dtype, device=dev))
     kernels.mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out,
-                        part, assign, pack, **kw)
+                        part, assign, pack, tc=tc, **kw)
     LAUNCHES["mixer_block"] += 1
+    PATHS["mixer_block/tc" if tc else "mixer_block/fma"] += 1
     moments = part.sum(dim=1)
     if return_residuals:
         return out, moments, pack
@@ -630,8 +637,10 @@ def mlp_block(x, stats, w1, b1, w2, b2, return_z1=False):
     _check("b2", b2, (x.shape[-1],), torch.float32, x.device)
     out = torch.empty_like(x)
     z1 = x.new_empty((*x.shape[:3], w1.shape[1])) if return_z1 else None
-    kernels.mlp_block(x, stats, w1, b1, w2, b2, out, z1)
+    tokens = kernels.mlp_tokens(x, w1, w2)
+    kernels.mlp_block(x, stats, w1, b1, w2, b2, out, z1, tokens)
     LAUNCHES["mlp_block_z1" if return_z1 else "mlp_block"] += 1
+    PATHS[f"mlp_block/mma{tokens}" if tokens else "mlp_block/fma"] += 1
     return (out, z1) if return_z1 else out
 
 

@@ -20,6 +20,7 @@ and a nonzero code raises here.  Nothing here is imported by the CPU path.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -50,8 +51,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGS = {
-    "mixer_block": [_P] * 15 + [_I] * 11 + [_P],
-    "mlp_block": [_P] * 8 + [_I] * 4 + [_P],
+    "mixer_block": [_P] * 15 + [_I] * 12 + [_P],
+    "mlp_block": [_P] * 8 + [_I] * 5 + [_P],
     "mixer_block_bwd": [_P] * 20 + [_I] * 12 + [_P],
     "mlp_block_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "cluster_mix": [_P] * 5 + [_I] * 9 + [_P],
@@ -64,8 +65,11 @@ _SIGS = {
 _SUFFIXES = {"simota_assign": ("f32",)}
 # further entries of a library: name -> (argument types, result type)
 _EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 7, _I)},
-          "mixer_block": {f"mixer_block_ablate_{t}": ([_P] * 12 + [_I] * 13 + [_P] * 2, _I)
-                          for t in ("bf16", "f32")}}
+          "mixer_block": {**{f"mixer_block_ablate_{t}": ([_P] * 12 + [_I] * 14 + [_P] * 2, _I)
+                             for t in ("bf16", "f32")},
+                          "mixer_block_groups": ([_I] * 9, _I),
+                          "mixer_block_info": ([_I] * 9 + [_P], _I)},
+          "mlp_block": {"mlp_block_info": ([_I] * 2 + [_P], _I)}}
 
 
 def _nvcc() -> str:
@@ -160,6 +164,11 @@ def _call(name: str, x: torch.Tensor, *args, entry: str | None = None) -> None:
         raise RuntimeError(f"{entry or name} kernel launch failed: {msg} (code {err})")
 
 
+@functools.lru_cache(maxsize=None)
+def _sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def mixer_cluster_size(heads: int, regions: int, device: torch.device,
                        fill: float = 1.0) -> int:
     """CTAs per region (one thread-block cluster, split by heads).  Splitting
@@ -167,29 +176,77 @@ def mixer_cluster_size(heads: int, regions: int, device: torch.device,
     SMs (every CTA of a cluster re-reads its whole region): then the smallest
     divisor of `heads` (at most 8, the portable cluster size) that gives that
     many blocks, or the largest such divisor."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sms(device)
     divisors = [d for d in range(1, 9) if heads % d == 0]
     return next((d for d in divisors if regions * d >= fill * sms), divisors[-1])
 
 
+def mixer_feat_on_tensor_cores(c: int, head_dim: int, dtype: torch.dtype) -> bool:
+    """Whether K2 runs its feat product on tensor cores (`feat_chunk_mma` in
+    csrc/mixer_block.cuh): bf16, C a multiple of 16 (the k-steps) and the
+    head width a multiple of 8 (so every head grouping's columns are whole
+    n-tiles, and K6/K6r, grouped otherwise, take the same path).  Else the
+    CUDA-core FMA path.  `asy::mix::feat_on_tc` makes the choice in the
+    kernels; K2 refuses a launch whose `tc` differs from it."""
+    return dtype == torch.bfloat16 and c % 16 == 0 and head_dim % 8 == 0
+
+
+def mixer_groups(x: torch.Tensor, inner: int, heads: int, fold_h: int, fold_w: int,
+                 proposal_h: int, proposal_w: int) -> int:
+    """CTAs per region of K2 on x (B, H, W, C): `mixer_cluster_size`'s
+    choice, raised to the next divisor of `heads` while the block does not
+    fit in shared memory.  Raises if none fits."""
+    b, h, w, c = x.shape
+    return _mixer_groups(x.element_size(), c, inner, heads, h // fold_h, w // fold_w,
+                         proposal_h, proposal_w, b * fold_h * fold_w, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mixer_groups(esz, c, inner, heads, rh, rw, proposal_h, proposal_w, regions, device):
+    least = mixer_cluster_size(heads, regions, device)
+    with torch.cuda.device(device):
+        g = load("mixer_block").mixer_block_groups(esz, c, inner, heads, rh, rw, proposal_h,
+                                                   proposal_w, least)
+    if g < 1:
+        raise RuntimeError(f"mixer_block: no split of C={c}, I={inner}, heads={heads} over "
+                           f"a cluster fits in shared memory")
+    return g
+
+
+def mixer_block_info(dtype, c, inner, heads, region_hw, proposal_h, proposal_w, groups,
+                     device) -> dict:
+    """K2 as launched with `groups` CTAs per region: its dynamic shared
+    memory (bytes), CTAs per SM and registers per thread."""
+    out = torch.zeros(3, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = load("mixer_block").mixer_block_info(
+            torch.empty((), dtype=dtype).element_size(), c, inner, heads, *region_hw,
+            proposal_h, proposal_w, groups, out.data_ptr())
+    if err:
+        raise RuntimeError(f"mixer_block_info: code {err}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "registers"), out.tolist()))
+
+
 def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, assign,
-                pack, *, heads, fold_h, fold_w, proposal_h, proposal_w) -> None:
+                pack, *, heads, fold_h, fold_w, proposal_h, proposal_w, tc) -> None:
     """Launch the mixer-half kernel; tensors are checked by the caller.
     `part` is (B, fold_h * fold_w * G, 2) with G = part.shape[1] // (fold_h *
-    fold_w) CTAs per region (see mixer_cluster_size).  `assign` (int8) and
-    `pack` (cbest, assign, c_rep, oc) may be None."""
+    fold_w) CTAs per region (see mixer_groups).  `assign` (int8) and `pack`
+    (cbest, assign, c_rep, oc) may be None; `tc`: whether feat runs on
+    tensor cores (mixer_feat_on_tensor_cores), which the kernel confirms: it
+    refuses a `tc` other than its own choice."""
     b, h, w, c = x.shape
     cbest, _, crep, oc = pack if pack is not None else (None,) * 4
     _call("mixer_block", x, _ptr(x), _ptr(stats), _ptr(wf), _ptr(bf), _ptr(wv),
           _ptr(bv), _ptr(w2), _ptr(b2), _ptr(alpha_beta), _ptr(out), _ptr(part),
           _ptr(assign), _ptr(cbest), _ptr(crep), _ptr(oc), b, h, w, c, wf.shape[1],
           heads, fold_h, fold_w, proposal_h, proposal_w,
-          part.shape[1] // (fold_h * fold_w))
+          part.shape[1] // (fold_h * fold_w), int(tc))
 
 
 def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, assign,
                        occupancy, *, heads, fold_h, fold_w, proposal_h, proposal_w, groups,
-                       stop, nf) -> None:
+                       tc, stop, nf) -> None:
     """Launch one prefix of the mixer-half kernel (`stop` a code of
     ops/mixer_ablate.py, `nf` the normalise-first variant); tensors are
     checked by the caller.  `part` is (B, fold_h * fold_w * groups, 2) f32;
@@ -199,8 +256,8 @@ def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, 
     b, h, w, c = x.shape
     _call("mixer_block", x, _ptr(x), _ptr(stats), _ptr(wf), _ptr(bf), _ptr(wv), _ptr(bv),
           _ptr(w2), _ptr(b2), _ptr(alpha_beta), _ptr(out), _ptr(part), _ptr(assign), b, h,
-          w, c, wf.shape[1], heads, fold_h, fold_w, proposal_h, proposal_w, groups, stop,
-          int(nf), _ptr(occupancy), entry="mixer_block_ablate")
+          w, c, wf.shape[1], heads, fold_h, fold_w, proposal_h, proposal_w, groups, int(tc),
+          stop, int(nf), _ptr(occupancy), entry="mixer_block_ablate")
 
 
 # tokens per block of the MLP backward.  Tensor-core path (bf16, C % 16 == 0,
@@ -270,12 +327,58 @@ def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, pack, dxn, scra
           fold_w, proposal_h, proposal_w, groups, tiles)
 
 
-def mlp_block(x, stats, w1, b1, w2, b2, out, z1) -> None:
-    """Launch the MLP-half kernel (also writing z1 unless it is None);
-    tensors are checked by the caller."""
+# K1's tensor-core path: tokens per CTA, widest first (4 warps a CTA; with
+# fewer than 64 tokens they split the hidden units)
+MLP_TOKENS = (64, 32, 16)
+
+
+def mlp_mma_shape(c: int, hid: int, dtype: torch.dtype) -> bool:
+    """Whether K1 takes its tensor-core path at this width (the operands
+    must also be 16-byte aligned): bf16, C a multiple of 16 up to 160,
+    hid a multiple of 8.  Else the CUDA-core path."""
+    return dtype == torch.bfloat16 and c % 16 == 0 and c <= 160 and hid % 8 == 0
+
+
+def mlp_tokens_per_cta(ntok: int, sms: int) -> int:
+    """Tokens per CTA of K1's tensor-core path: the most (of 64, 32, 16) that
+    still give at least one CTA per SM, else 16 (a grid that cannot cover
+    the card is as wide as it can be).  A CTA is 4 warps either way: 16
+    tokens a warp at 64, the hidden units split over 2 or 4 warps below."""
+    return next((t for t in MLP_TOKENS if -(-ntok // t) >= sms), MLP_TOKENS[-1])
+
+
+def mlp_tokens(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> int:
+    """K1's tokens per CTA for these operands, 0 for the CUDA-core path."""
+    if (x.data_ptr() | w1.data_ptr() | w2.data_ptr()) % 16:
+        return 0
+    b, h, w, c = x.shape
+    return _mlp_tokens(b * h * w, c, w1.shape[1], x.dtype, x.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_tokens(ntok, c, hid, dtype, device):
+    return mlp_tokens_per_cta(ntok, _sms(device)) if mlp_mma_shape(c, hid, dtype) else 0
+
+
+def mlp_block_info(c: int, tokens: int, device) -> dict:
+    """K1's tensor-core kernel at width c with `tokens` per CTA: its dynamic
+    shared memory (bytes), CTAs per SM and registers per thread."""
+    out = torch.zeros(3, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = load("mlp_block").mlp_block_info(c, tokens, out.data_ptr())
+    if err:
+        raise RuntimeError(f"mlp_block_info: code {err}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "registers"), out.tolist()))
+
+
+def mlp_block(x, stats, w1, b1, w2, b2, out, z1, tokens) -> None:
+    """Launch the MLP-half kernel (also writing z1 unless it is None) with
+    `tokens` per CTA on its tensor-core path, 0 for its CUDA-core path (see
+    mlp_tokens; the kernel refuses a `tokens` that names the path it does
+    not take); tensors are checked by the caller."""
     b, h, w, c = x.shape
     _call("mlp_block", x, _ptr(x), _ptr(stats), _ptr(w1), _ptr(b1), _ptr(w2),
-          _ptr(b2), _ptr(out), _ptr(z1), b, h * w, c, w1.shape[1])
+          _ptr(b2), _ptr(out), _ptr(z1), b, h * w, c, w1.shape[1], tokens)
 
 
 def cluster_mix(feat, value, alpha_beta, out, assign, *, heads, fold_h, fold_w,

@@ -137,8 +137,8 @@ def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads, f
                        fold_w, proposal_h, proposal_w, stop, nf=False, groups=None,
                        return_assign=False, return_occupancy=False):
     """One prefix of the mixer half (operands as `ops/block.py::mixer_block`).
-    `groups`: CTAs per region (None: `kernels.mixer_cluster_size`'s choice,
-    as K2's; 1 on the CPU).  Returns (out, part (B, R * G, 2) f32) [, the
+    `groups`: CTAs per region (None: `kernels.mixer_groups`' choice, as
+    K2's; 1 on the CPU).  The feat path is K2's.  Returns (out, part (B, R * G, 2) f32) [, the
     assignment (B, H, W, heads) int8 of a full prefix] [, (the prefix's CTAs
     per SM as launched, K2's), None on the CPU].  On the CPU the twin runs,
     on a CUDA tensor the kernel (or it raises); both under the profiler
@@ -161,7 +161,9 @@ def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads, f
         f32, dev = torch.float32, x.device
         block._check("b2", b2, (c,), f32, dev)
         regions = fold_h * fold_w
-        g = groups or kernels.mixer_cluster_size(heads, b * regions, dev)
+        g = groups or kernels.mixer_groups(x, wf.shape[1], heads, fold_h, fold_w,
+                                           proposal_h, proposal_w)
+        tc = kernels.mixer_feat_on_tensor_cores(c, wf.shape[1] // heads, x.dtype)
         _check_prefix(stop, nf, heads, g)
         out = torch.empty_like(x)
         part = torch.empty((b, regions * g, 2), dtype=f32, device=dev)
@@ -169,7 +171,8 @@ def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads, f
                if return_assign else None)
         occ = torch.zeros(2, dtype=torch.int32)
         kernels.mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out,
-                                   part, asg, occ, groups=g, stop=CODES[stop], nf=nf, **kw)
+                                   part, asg, occ, groups=g, tc=tc, stop=CODES[stop], nf=nf,
+                                   **kw)
         LAUNCHES["mixer_block_ablate"] += 1
         occupancy = tuple(occ.tolist())
     res = (out, part)

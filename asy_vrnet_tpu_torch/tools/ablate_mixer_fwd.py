@@ -17,7 +17,7 @@ of a `--hw`^2 input, batch `--batch`: x (B, hw/4/2^s, hw/4/2^s, C) bf16,
 random weights from seed 0 (as the TPU tool's).  Any stage 0-3 runs: the TPU
 tool asserted a lane fold (s > 1, stages 0-1), a TPU layout the port does
 not have.  `--groups` is the CTAs per region (K2's thread-block cluster
-size), overriding `kernels.mixer_cluster_size` (0: its choice); the TPU
+size), overriding `kernels.mixer_groups` (0: its choice); the TPU
 tool's `--gw` grouped regions per program instead.  `--device cpu` runs the
 plain twins on the CPU (the times are then the CPU's).
 
@@ -136,7 +136,7 @@ def parse_args(argv=None):
     ap.add_argument("--width", type=float, default=0.25)
     ap.add_argument("--stage", type=int, default=0)
     ap.add_argument("--groups", type=int, default=0,
-                    help="CTAs per region (0: kernels.mixer_cluster_size's choice)")
+                    help="CTAs per region (0: kernels.mixer_groups' choice)")
     ap.add_argument("--iters", type=int, default=5)
     ap.add_argument("--out", default=os.path.join(tempfile.gettempdir(), "ablate_mixer_fwd"),
                     help="directory of the profiler's Chrome trace")
@@ -160,12 +160,12 @@ def time_prefixes(x, stats, ws, kw, groups, iters, log_dir, jobs=JOBS) -> dict:
 
     events = {job: 1e3 * profiling.chained_device_time(
         lambda xx, j=job: prefix(xx, *j), x, n=iters) for job in jobs}
-    with profiling.trace(log_dir):
+    def sweeps():
         for _ in range(iters):
             for job in jobs:
                 prefix(x, *job)
-        if x.is_cuda:
-            torch.cuda.synchronize()
+
+    profiling.traced(sweeps, log_dir, on_card=x.is_cuda)
     table = profiling.kernel_table(log_dir, iters)
 
     def traced(job):
@@ -198,7 +198,8 @@ def run(args) -> dict:
     if dev.type == "cuda" and not groups:
         from asy_vrnet_tpu_torch.ops import kernels
 
-        groups = kernels.mixer_cluster_size(geo["heads"], geo["b"] * geo["fold"] ** 2, dev)
+        groups = kernels.mixer_groups(x, ws[0].shape[1], geo["heads"], geo["fold"], geo["fold"],
+                                      geo["ph"], geo["pw"])
     groups = groups or 1
 
     def full(nf):

@@ -143,6 +143,27 @@ def trace(log_dir: str):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
+def _trace_events(trace_dir: str) -> list:
+    with open(os.path.join(trace_dir, "trace.json")) as fh:
+        return json.load(fh)["traceEvents"]
+
+
+def traced(run: Callable[[], Any], log_dir: str, on_card: bool, attempts: int = 3) -> int:
+    """Call `run()` inside `trace(log_dir)`; on the card, call it again, up
+    to `attempts` calls in all, while the trace holds no device event.  Now
+    and then the card's profiler hands back a trace with none at all (not
+    one that lost its last launches: padding the trace's end does not help),
+    and a short trace then times no kernel.  Returns the calls made."""
+    for n in range(1, attempts + 1):
+        with trace(log_dir):
+            run()
+            if on_card:
+                torch.cuda.synchronize()
+        if not on_card or any(e.get("cat") in _DEVICE_CATS for e in _trace_events(log_dir)):
+            return n
+    return attempts
+
+
 def kernel_table(trace_dir: str, iters: int) -> dict:
     """Device time per iteration of the trace that `trace(trace_dir)` wrote:
     {(name, shape): (ms per iteration, count per iteration)} (the
@@ -158,8 +179,7 @@ def kernel_table(trace_dir: str, iters: int) -> dict:
     the launching op's input dims where it recorded them, else "?".  A
     trace with no device event (CPU arguments) keys the CPU time of each
     labelled range instead."""
-    with open(os.path.join(trace_dir, "trace.json")) as fh:
-        events = json.load(fh)["traceEvents"]
+    events = _trace_events(trace_dir)
     dims = {e["args"]["External id"]: e["args"].get("Input Dims") for e in events
             if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
     device = [e for e in events if e.get("cat") in _DEVICE_CATS]
@@ -174,25 +194,29 @@ def kernel_table(trace_dir: str, iters: int) -> dict:
     return {k: (us / iters / 1e3, count[k] / iters) for k, us in total.items()}
 
 
-def profile_calls(fn: Callable, reps: int = 3) -> dict:
+def profile_calls(fn: Callable, reps: int = 3, attempts: int = 3) -> dict:
     """torch.profiler over `reps` calls of fn() on the card: host wall time,
     device busy time, device time by category and the top kernels (per
-    call)."""
+    call).  A profile that recorded no kernel is taken again, up to
+    `attempts` profiles in all (see `traced`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = {}
-    for e in prof.events():
-        if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            t, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (t + e.device_time_total / 1e3 / reps, n + 1)
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        kernels = {}
+        for e in prof.events():
+            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
+                t, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (t + e.device_time_total / 1e3 / reps, n + 1)
+        if kernels:
+            break
     device = sum(t for t, _ in kernels.values())
     cats = {c: 0.0 for c, _ in CATEGORIES}
     cats["other elementwise"] = 0.0

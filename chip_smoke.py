@@ -8,10 +8,12 @@ Phases (each raises on failure; nothing is caught):
      print ptxas registers / shared memory / spills;
   2. at the 7 ClusterBlock shapes of nano coc_small at 512^2, batch 8, hold
      each kernel against its plain PyTorch twin on the card, bf16 (the main
-     path) and f32;
+     path) and f32; two runs of K2 and of K1 give equal bits;
   3. main path: load the trained r05 weights into nano coc_small at 512^2,
      bf16, run one batch-8 forward (launch counters reset just before, read
-     just after: 27 launches of each kernel), compare it with the same
+     just after: 27 launches of each kernel, all 27 of K2 with its feat on
+     tensor cores and all 27 of K1 on tensor cores with the tokens per CTA
+     `kernels.mlp_tokens_per_cta` gives each shape), compare it with the same
      forward through the plain twins, and check the card against the CPU
      (plain path, f32) at 128^2;
   4. the Detector answers 4 seeded requests (PIL image + radar array) laid
@@ -19,8 +21,11 @@ Phases (each raises on failure; nothing is caught):
      at least half of the drawn objects must come back (IoU >= 0.5, right
      class).  r05 reached AP50 0.97 on its own 48 training images; these
      are new layouts;
-  5. times each kernel per shape, its plain twin and its bound, the full
-     forward at batch 8 and 32, and peak memory;
+  5. times each kernel per shape (CUDA events; device time in a profiler
+     trace beside it), its plain twin and its bound, with its launch
+     geometry (CTAs, K2's CTAs per region, K1's tokens per CTA, CTAs per SM
+     from the occupancy API, shared memory, registers, the path taken); the
+     full forward at batch 8 and 32, and peak memory;
   6. kernels, training: the fused seg-loss forward and backward kernels
      against their plain twins at (16, 512, 512, 9), bf16 and f32, focal+dice
      and CE-only, with and without class weights, ~10% ignored pixels; the
@@ -337,6 +342,34 @@ def simota_bounds(b, a, g, c, k, valid_rows, dyn_k_sum):
              + 4 * a * (valid_rows * k + dyn_k_sum))
     byts = 4 * (b * a * (4 + c + 1) + b * g * 6 + a * 3) + b * a * 9
     return flops, byts
+
+
+# the kernels' template names in a profiler trace
+KERNEL_NAMES = {"mixer_block": "mixer_block_kernel", "mlp_block": "mlp_block_mma_kernel"}
+
+
+def device_ms(fn, kernel, iters, warmup=3):
+    """(device ms per launch of the kernels whose trace name contains
+    `kernel`, over `iters` calls of fn() in a profiler trace; the traces
+    taken, more than 1 where the profiler handed back one without device
+    events)."""
+    import torch
+
+    from asy_vrnet_tpu_torch.utils.profiling import kernel_table, traced
+
+    def run():
+        for _ in range(iters):
+            fn()
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        tries = traced(run, d, on_card=True)
+        rows = [v for (name, _), v in kernel_table(d, iters).items() if kernel in name]
+    count = sum(n for _, n in rows)
+    check(count > 0, f"the trace recorded {kernel}")
+    return sum(ms for ms, _ in rows) / count, tries
 
 
 def rel_diff(a, b):
@@ -940,7 +973,10 @@ def main() -> int:
             st = block.gn1_stats(x)
             mw, lw = cast(mixer_w, dt), cast(mlp_w, dt)
             out, mom, asg = block.mixer_block(x, st, *mw, return_assign=True, **kw)
+            again = block.mixer_block(x, st, *mw, return_assign=True, **kw)
             torch.cuda.synchronize()
+            check(all(torch.equal(a, r) for a, r in zip((out, mom, asg), again)),
+                  f"K2 bits {name} {dt}")
             ref, rmom, rasg = block.mixer_block_plain(x, st, *mw, return_assign=True, **kw)
             diff = (out.float() - ref.float()).abs()
             ymax = (ref.float() - x.float()).abs().max().item()
@@ -964,10 +1000,12 @@ def main() -> int:
                 stats_out["mixer_block"].setdefault("agreement", []).append(agree)
             y = block.mlp_block(x, st, *lw)
             torch.cuda.synchronize()
+            check(torch.equal(y, block.mlp_block(x, st, *lw)), f"K1 bits {name} {dt}")
             yref = block.mlp_block_plain(x, st, *lw)
             dmax = (y.float() - yref.float()).abs().max().item()
             scale = yref.float().abs().max().item()
-            log(f"[check mlp_block {name} {str(dt)[6:]}] max|diff| {dmax:.4e} max|out| {scale:.4e}")
+            log(f"[check mlp_block {name} {str(dt)[6:]}] max|diff| {dmax:.4e} max|out| {scale:.4e}; "
+                f"two runs of K2 and of K1 give equal bits")
             if dt == torch.float32:
                 check(dmax <= 1e-5 * max(1.0, scale), name)
             else:
@@ -989,10 +1027,13 @@ def main() -> int:
         lambda m, a: seen.append((tuple(a[0].shape), m.heads, m.head_dim, m.fold_h)))
         for m in model.modules() if isinstance(m, ClusterBlock)]
     reset_launches(block, cf)
+    for k in block.PATHS:
+        block.PATHS[k] = 0
     with torch.no_grad():
         det, seg = model(img, rad)
     torch.cuda.synchronize()
     launches = dict(block.LAUNCHES)
+    paths = dict(block.PATHS)
     for hk in hooks:
         hk.remove()
     log(f"[main path] launches {launches}, {cf.LAUNCHES}")
@@ -1000,6 +1041,15 @@ def main() -> int:
           and not any(cf.LAUNCHES.values()), launches)
     want = {(b, c, h, w, heads, d, fold) for (_, b, h, w, c, heads, d, fold, _, _) in SHAPES}
     check({s + (hd, dd, f) for s, hd, dd, f in seen} == want, seen)
+    # every main-path shape: K2's feat on tensor cores, K1 on tensor cores
+    # with its tokens per CTA chosen from the shape's token count
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want_paths = dict.fromkeys(block.PATHS, 0)
+    want_paths["mixer_block/tc"] = 27
+    for (_, b, h, w, *_rest, calls) in SHAPES:
+        want_paths[f"mlp_block/mma{kernels.mlp_tokens_per_cta(b * h * w, sms)}"] += calls
+    log(f"[main path] kernel paths {paths}")
+    check(paths == want_paths, f"main-path kernel paths {paths}, expected {want_paths}")
     check([tuple(o.shape) for o in det] == [(8, 64, 64, 9), (8, 32, 32, 9), (8, 16, 16, 9)],
           "det shapes")
     check(tuple(seg.shape) == (8, 512, 512, 9), "seg shape")
@@ -1068,38 +1118,60 @@ def main() -> int:
     check(found >= 0.5 * total, f"recall {found}/{total}")
 
     # ---- 5. timing ----
+    # kernel ms: CUDA events around 20 launches, as every kernel's; beside it
+    # `device_ms`, the device time of those launches in a profiler trace (at
+    # batch 8 a launch can take less time on the card than its wrapper on the
+    # host, and the events then time the host).  With the launch geometry:
+    # CTAs, CTAs per SM (the occupancy API), shared memory, registers and the
+    # path taken.
     report = []
     for kname in KERNELS:
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0}
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "flops_ms": 0.0, "bytes_ms": 0.0}
         for (name, b, h, w, c, heads, d, fold, hid, calls) in SHAPES:
             x, st, mw, lw, kw = inputs[name]
             if kname == "mixer_block":
                 fk = lambda: block.mixer_block(x, st, *mw, **kw)          # noqa: E731
                 fp = lambda: block.mixer_block_plain(x, st, *mw, **kw)    # noqa: E731
                 flops, byts = mixer_bounds(b, h, w, c, heads, d, fold)
+                groups = kernels.mixer_groups(x, heads * d, heads, fold, fold, 2, 2)
+                geo = {"ctas": b * fold * fold * groups, "groups": groups,
+                       "path": "tc" if kernels.mixer_feat_on_tensor_cores(c, d, x.dtype)
+                       else "fma",
+                       **kernels.mixer_block_info(x.dtype, c, heads * d, heads,
+                                                  (h // fold, w // fold), 2, 2, groups, dev)}
             else:
                 fk = lambda: block.mlp_block(x, st, *lw)                  # noqa: E731
                 fp = lambda: block.mlp_block_plain(x, st, *lw)            # noqa: E731
                 flops, byts = mlp_bounds(b, h, w, c, hid)
+                tokens = kernels.mlp_tokens(x, lw[0], lw[2])
+                geo = {"ctas": -(-b * h * w // tokens), "tokens_per_cta": tokens,
+                       "path": f"mma{tokens}", **kernels.mlp_block_info(c, tokens, dev)}
+            dms, tries = device_ms(fk, KERNEL_NAMES[kname], 20)
             ms, pms = cuda_ms(fk, 20), cuda_ms(fp, 5, warmup=1)
             bms, by = bound_ms(flops, byts)
-            log(f"[time {kname} {name}] kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-                f"bound {bms:.5f} ms ({by}), x{calls} per forward")
+            log(f"[time {kname} {name}] kernel {ms:.4f} ms (device {dms:.4f} in a trace, "
+                f"traces taken {tries}), plain {pms:.4f} ms, bound {bms:.5f} ms ({by}), "
+                f"x{calls} per forward")
+            log(f"[geometry {kname} {name}] " + ", ".join(f"{k} {v}" for k, v in geo.items()))
             stats_out[kname]["per_shape"].append(
-                {"shape": name, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                 "bound_by": by, "calls_per_forward": calls})
+                {"shape": name, "ms": ms, "device_ms": dms, "plain_ms": pms, "bound_ms": bms,
+                 "bound_by": by, "calls_per_forward": calls, **geo})
             tot["ms"] += calls * ms
+            tot["device_ms"] += calls * dms
             tot["plain_ms"] += calls * pms
             tot["bound_ms"] += calls * bms
             tot["flops_ms"] += calls * flops / PEAK_FLOPS * 1e3
             tot["bytes_ms"] += calls * byts / PEAK_BYTES * 1e3
+        log(f"[time {kname}] per batch-8 forward: {tot['ms']:.4f} ms (device "
+            f"{tot['device_ms']:.4f} in a trace), bound {tot['bound_ms']:.4f} ms")
         report.append({
             "name": kname, "route": "cuda", **KERNELS[kname],
             "launches": launches[kname],
             "max_abs_err": stats_out[kname]["max_abs_err"],
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "operations" if tot["flops_ms"] >= tot["bytes_ms"] else "bytes",
-            "library_ms": None,
+            "library_ms": None, "device_ms": tot["device_ms"],
             "per_shape": stats_out[kname]["per_shape"],
         })
     del inputs
@@ -1602,6 +1674,12 @@ def main() -> int:
                        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                        "bound_by": st["bound_by"], "library_ms": None,
                        "per_shape": st["per_shape"]})
+    # K6 and K6r run K2's feat and pooling device code (mixer_block.cuh); K5
+    # is K1's backward: their times per step beside the redesigned forward
+    log(f"[redesign] per batch-16 step (CUDA events x calls): K6 "
+        f"{bwd_stats['mixer_block_bwd']['ms']:.4f} ms, K6r "
+        f"{remat_stats['mixer_block_bwd_remat']['ms']:.4f} ms, K5 "
+        f"{bwd_stats['mlp_block_bwd']['ms']:.4f} ms")
     for kname in TRAIN_KERNELS:
         st = train_stats[kname]
         report.append({"name": kname, "route": "cuda", **TRAIN_KERNELS[kname],

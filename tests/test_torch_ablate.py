@@ -223,6 +223,21 @@ def test_kernel_table_counts_labelled_ranges(tmp_path):
     assert (tmp_path / "trace.json").exists()
 
 
+def test_traced_takes_one_trace_on_cpu(tmp_path):
+    """On CPU arguments there is no device event to wait for: one trace,
+    whose labelled ranges `kernel_table` counts."""
+    a, b = torch.randn(16, 32), torch.randn(32, 8)
+    calls = []
+
+    def run():
+        calls.append(1)
+        with torch.profiler.record_function("lab/a"):
+            a @ b
+
+    assert profiling.traced(run, str(tmp_path), on_card=False) == 1 and calls == [1]
+    assert profiling.kernel_table(str(tmp_path), 1)[("lab/a", "?")][1] == 1
+
+
 def test_param_count_matches_jax():
     rng = np.random.default_rng(0)
     tree = {"params": {"a": rng.standard_normal((3, 4)), "b": [rng.standard_normal(5),

@@ -113,6 +113,178 @@ def test_mlp_kernel_matches_plain(dev, shape, dt):
         assert diff <= 2 * 2.0 ** (torch.log2(torch.tensor(scale)).floor().item() - 7)
 
 
+def _at_batch(shape, batch):
+    return (shape[0], batch) + shape[2:]
+
+
+def _main_path(shape):
+    return shape[0] != "tiny_stage0"
+
+
+# the largest margin, in the twin's f32 logits, by which the twin may prefer
+# another proposal where the f32 kernel's assignment differs from it: tens of
+# f32 ulps at |logit| ~ 1, the spread of sums of the same products in
+# another order (64-256 terms)
+NEAR_TIE = 1e-5
+
+
+def _flip_margins(x, st, args, kw, asg):
+    """Where K2's assignment `asg` (B, heads, H, W) differs from the twin's
+    first max: the twin's max logit less its logit at K2's pick (empty when
+    they agree)."""
+    wf, bf, wv, bv, _, _, ab = args
+    p = block._mixer_planes(x, st, wf, bf, wv, bv, ab, **kw)
+    logit = ab[1] + ab[0] * p.cos
+    karg = block._regions(asg.permute(0, 2, 3, 1), kw["fold_h"], kw["fold_w"])[0].long()
+    gap = logit.max(-1).values - logit.gather(-1, karg[..., None])[..., 0]
+    return gap[karg != p.arg]
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_kernel_matches_plain_at_batch(dev, shape, dt, batch):
+    """K2 at batch 1 and 32 (other cluster sizes, other grids): two launches
+    give equal bits; K2's feat ran on tensor cores exactly on the main path
+    in bf16; against the twin with its own assignment at the tolerances
+    above.  In f32, where an assignment differs (more tokens, more
+    near-ties), each differing pick must be a near-tie in the twin's logits
+    (NEAR_TIE), and the output is then held at the same tolerance against
+    the twin fed K2's assignment."""
+    _, b, h, w, c, heads, d, fold, hid = _at_batch(shape, batch)
+    x, _, st, args, kw = _mixer_setup(dev, _at_batch(shape, batch), dt, 11)
+    tc = block.PATHS["mixer_block/tc"]
+    out, mom, asg = block.mixer_block(x, st, *args, return_assign=True, **kw)
+    again = block.mixer_block(x, st, *args, return_assign=True, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, r) for a, r in zip((out, mom, asg), again))
+    on_tc = dt == torch.bfloat16 and _main_path(shape)
+    assert block.PATHS["mixer_block/tc"] == tc + (2 if on_tc else 0)
+    ref, _, rasg = block.mixer_block_plain(x, st, *args, return_assign=True, **kw)
+    agree = (asg == rasg).float().mean().item()
+    ymax = (ref.float() - x.float()).abs().max().item()
+    if dt == torch.float32:
+        assert agree >= 0.9999
+        margins = _flip_margins(x, st, args, kw, asg)
+        if margins.numel():
+            assert margins.max().item() <= NEAR_TIE
+            wf, bf, wv, bv, w2, b2, ab = args
+            p = block._mixer_planes(x, st, wf, bf, wv, bv, ab, assign=asg.permute(0, 2, 3, 1),
+                                    **kw)
+            ref, _ = block._mixer_out(x, p, w2, b2, heads, fold, fold)
+        assert (out - ref).abs().max().item() <= 1e-4 * max(1.0, ymax)
+    else:
+        diff = (out.float() - ref.float()).abs()
+        assert agree >= 0.99
+        assert diff.mean().item() <= 0.02 * ymax
+        ulp = 2.0 ** (torch.log2(ref.float().abs().max()).floor().item() - 7)
+        assert diff.max().item() <= ymax + 2 * ulp
+
+
+def test_kernels_refuse_a_path_their_shape_does_not_take(dev):
+    """K2's `tc` and K1's `tokens` confirm the path the kernel picks from
+    the shape, and never pick one: the other path raises."""
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    shape = SHAPES[2]
+    x, _, st, args, kw = _mixer_setup(dev, shape, torch.bfloat16, 16)
+    b, h, w, c = x.shape
+    wf, bf, wv, bv, w2, b2, ab = args
+    fold, heads = kw["fold_h"], kw["heads"]
+    g = kernels.mixer_groups(x, wf.shape[1], heads, fold, fold, 2, 2)
+    part = torch.empty((b, fold * fold * g, 2), dtype=torch.float32, device=dev)
+    assert kernels.mixer_feat_on_tensor_cores(c, wf.shape[1] // heads, x.dtype)
+    with pytest.raises(RuntimeError, match="mixer_block kernel launch failed"):
+        kernels.mixer_block(x, st, wf, bf, wv, bv, w2, b2, ab, torch.empty_like(x), part, None,
+                            None, tc=False, **kw)
+    _, _, mlp = _weights(c, heads * shape[6], shape[8], 16)
+    w1, b1, w2m, b2m = _cast(mlp, torch.bfloat16, dev)
+    assert kernels.mlp_tokens(x, w1, w2m) > 0
+    with pytest.raises(RuntimeError, match="mlp_block kernel launch failed"):
+        kernels.mlp_block(x, st, w1, b1, w2m, b2m, torch.empty_like(x), None, 0)
+
+
+def _mlp_close(out, ref, dt):
+    diff = (out.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    if dt == torch.float32:
+        assert diff <= 1e-5 * max(1.0, scale)
+    else:
+        assert diff <= 2 * 2.0 ** (np.floor(np.log2(max(scale, 1e-30))) - 7)
+
+
+@pytest.mark.parametrize("batch", [1, 32])
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mlp_kernel_matches_plain_at_batch(dev, shape, dt, batch):
+    """K1 at batch 1 and 32 (other tokens per CTA): within the tolerances
+    above, two launches give equal bits, on tensor cores exactly on the main
+    path in bf16, with the tokens per CTA `mlp_tokens_per_cta` picks."""
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    _, b, h, w, c, heads, d, fold, hid = _at_batch(shape, batch)
+    n, _, mlp = _weights(c, heads * d, hid, 12)
+    x = n(b, h, w, c).to(dev, dt)
+    st = block.gn1_stats(x)
+    args = _cast(mlp, dt, dev)
+    paths = dict(block.PATHS)
+    out = block.mlp_block(x, st, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, block.mlp_block(x, st, *args))
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    key = (f"mlp_block/mma{kernels.mlp_tokens_per_cta(b * h * w, sms)}"
+           if dt == torch.bfloat16 and _main_path(shape) else "mlp_block/fma")
+    assert block.PATHS[key] == paths[key] + 2
+    _mlp_close(out, block.mlp_block_plain(x, st, *args), dt)
+
+
+# (B, H, W, C, hid): token counts that are no multiple of 16, at the main
+# path's widths (a CTA's last warp holds rows past the end)
+RAGGED = [(3, 5, 7, 16, 128), (1, 9, 13, 80, 320), (2, 3, 11, 160, 640), (1, 1, 17, 128, 512),
+          (5, 7, 9, 64, 256)]
+
+
+@pytest.mark.parametrize("case", RAGGED, ids=[f"{b}x{h}x{w}x{c}" for b, h, w, c, _ in RAGGED])
+def test_mlp_kernel_ragged_token_counts(dev, case):
+    """K1 (bf16, tensor cores) and its z1 variant at ragged token counts:
+    the output within 2 bf16 ulps of the twin's, the same bits with and
+    without z1, z1 within 2 bf16 ulps of the twin's."""
+    b, h, w, c, hid = case
+    n, _, mlp = _weights(c, 4 * 8, hid, 13)
+    x = n(b, h, w, c).to(dev, torch.bfloat16)
+    st = block.gn1_stats(x)
+    args = _cast(mlp, torch.bfloat16, dev)
+    mma = sum(v for k, v in block.PATHS.items() if k.startswith("mlp_block/mma"))
+    out = block.mlp_block(x, st, *args)
+    out_z, z1 = block.mlp_block(x, st, *args, return_z1=True)
+    torch.cuda.synchronize()
+    assert sum(v for k, v in block.PATHS.items() if k.startswith("mlp_block/mma")) == mma + 2
+    assert torch.equal(out, out_z)
+    ref, zref = block.mlp_block_plain(x, st, *args, return_z1=True)
+    _mlp_close(out, ref, torch.bfloat16)
+    _mlp_close(z1, zref, torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_mixer_block_fits_shared_memory_at_batch_32_and_16_with_the_pack(dev, shape, dt):
+    """K2 stages its weights and three chunks in shared memory: every shape
+    launches at batch 32, and at batch 16 with the residual pack, without a
+    shared-memory refusal (the cluster grows where a block would not fit),
+    with finite outputs; K6r then rebuilds the pack's assignment bit for
+    bit."""
+    x, _, st, args, kw = _mixer_setup(dev, _at_batch(shape, 32), dt, 14)
+    out, mom = block.mixer_block(x, st, *args, **kw)
+    x, g, st, args, kw = _mixer_setup(dev, _at_batch(shape, 16), dt, 15)
+    out16, mom16, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    wf, bf, wv, bv, w2, _, ab = args
+    *_, asg = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, None, return_assign=True,
+                                    **kw)
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(t.float()).all()) for t in (out, mom, out16, mom16))
+    assert torch.equal(asg, pack[1])
+
+
 def test_model_on_card_matches_cpu(dev):
     """coc_dryrun at 128^2 in f32: the card (kernels for the 10 fused blocks)
     against the CPU (their plain twins): atol 1e-3, the f32 kernels vs
