@@ -87,6 +87,29 @@ __device__ __forceinline__ void ldmatrix_b(uint32_t& b0, uint32_t& b1, const __n
                : "r"(s));
 }
 
+// A fragment of rows m [0,16) x k [0,16) from a [k][m] bf16 tile at `p`
+// (k rows, m contiguous: the transpose of what ldmatrix_a reads)
+__device__ __forceinline__ void ldmatrix_at(uint32_t (&a)[4], const __nv_bfloat16* p, int ld) {
+  const int l = threadIdx.x % 32, j = l >> 3;
+  const unsigned s =
+      (unsigned)__cvta_generic_to_shared(p + ((j >> 1) * 8 + (l & 7)) * ld + (j & 1) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(s));
+}
+
+// B fragment of k [0,16) x n [0,8) from an [n][k] bf16 tile at `p` (n rows,
+// k contiguous: the transpose of what ldmatrix_b reads)
+__device__ __forceinline__ void ldmatrix_bt(uint32_t& b0, uint32_t& b1, const __nv_bfloat16* p,
+                                            int ld) {
+  const int l = threadIdx.x % 32;
+  const unsigned s =
+      (unsigned)__cvta_generic_to_shared(p + (l & 7) * ld + ((l >> 3) & 1) * 8);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(b0), "=r"(b1)
+               : "r"(s));
+}
+
 // ---- asynchronous copies into shared memory (cp.async) ----
 // One copy of kBytes (4, 8 or 16); with ok false the destination is zero
 // filled and nothing is read.

@@ -201,8 +201,9 @@ __device__ void feat_chunk_mma(LA load_a, LB load_b, const float* bf, int C, int
 // kX), of the sims (rsp) and the counts (cntp).  sg[t*hpc + hl] is the
 // winner's sigmoid, arg(t*hpc + hl) its proposal, xin(t, c) rounded xn.
 // Every accumulator has one owner thread, so no barrier is needed inside;
-// the caller sums the splits in order afterwards.
-template <typename T, bool kX, typename XIN, typename ARG>
+// the caller sums the splits in order afterwards.  Without kCounts only the
+// weighted sums (the backward's sums of g reuse them; rsp, cntp unused).
+template <typename T, bool kX, bool kCounts = true, typename XIN, typename ARG>
 __device__ void agg_chunk(XIN xin, const float* sg, ARG arg, int nt, int hpc, int M, int C,
                           int splits, float* acc, float* rsp, float* cntp) {
   const int tid = threadIdx.x, nth = blockDim.x;
@@ -218,6 +219,7 @@ __device__ void agg_chunk(XIN xin, const float* sg, ARG arg, int nt, int hpc, in
       }
     }
   }
+  if constexpr (!kCounts) return;
   for (int e = tid; e < splits * hpc; e += nth) {
     const int hl = e % hpc, s = e / hpc;
     for (int t = s; t < nt; t += splits) {

@@ -58,11 +58,14 @@ _GN_EPS = 1e-5
 # mixer_block_bwd_remat, the z1 variants of K1 and K5 are *_z1
 LAUNCHES = {"mixer_block": 0, "mlp_block": 0, "mixer_block_bwd": 0, "mlp_block_bwd": 0,
             "mixer_block_bwd_remat": 0, "mlp_block_z1": 0, "mlp_block_bwd_z1": 0}
-# the same launches of K2 and K1 (either variant) by the path they took: K2's
-# feat on tensor cores ("tc") or CUDA cores ("fma"); K1 on tensor cores with
-# t tokens per CTA ("mma<t>") or on CUDA cores ("fma")
+# the same launches of K2, K1, K6 and K6r (either variant) by the path they
+# took: K2's feat, K6's and K6r's feat, dxn-share and dWf products on tensor
+# cores ("tc") or CUDA cores ("fma"); K1 on tensor cores with t tokens per
+# CTA ("mma<t>") or on CUDA cores ("fma")
 PATHS = {"mixer_block/tc": 0, "mixer_block/fma": 0, "mlp_block/mma16": 0,
-         "mlp_block/mma32": 0, "mlp_block/mma64": 0, "mlp_block/fma": 0}
+         "mlp_block/mma32": 0, "mlp_block/mma64": 0, "mlp_block/fma": 0,
+         "mixer_block_bwd/tc": 0, "mixer_block_bwd/fma": 0, "mixer_block_bwd_remat/tc": 0,
+         "mixer_block_bwd_remat/fma": 0}
 
 
 def _use_bwd_residuals() -> bool:
@@ -681,9 +684,10 @@ def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals, *,
     dtype; wf/wv (C,I), w2 (I,C) in x's dtype; bf, bv, stats (B,2),
     alpha_beta (2,) f32.  Returns what `mixer_block_bwd_plain` returns;
     with `return_assign` (K6r only, a check the train path never asks for)
-    also the assignment it rebuilt, (B,H,W,heads) int8.  Partials (one row
-    per block) are reduced by torch sums (no float atomics: two runs give
-    the same bits)."""
+    also the assignment it rebuilt, (B,H,W,heads) int8.  K6r keeps its
+    winners in buffers of this call (9 bytes a (token, head)), freed when it
+    returns.  Partials (one row per block) are reduced by torch sums (no
+    float atomics: two runs give the same bits)."""
     kw = dict(heads=heads, fold_h=fold_h, fold_w=fold_w,
               proposal_h=proposal_h, proposal_w=proposal_w)
     if return_assign and residuals is not None:
@@ -713,20 +717,25 @@ def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals, *,
             _check(name, t, shape, dtype, dev)
     regions = fold_h * fold_w
     m = proposal_h * proposal_w
+    remat = residuals is None
     groups = kernels.mixer_bwd_groups(c, inner, heads, b * regions, proposal_h, proposal_w,
-                                      residuals is None, dev)
-    tiles = kernels.mixer_bwd_tiles(h * w)
+                                      remat, dev, x.dtype)
+    tiles = kernels.mixer_bwd_tiles(h * w, c)
+    tc = kernels.mixer_feat_on_tensor_cores(c, inner // heads, x.dtype)
     dxn = torch.empty_like(x)
     scratch = torch.empty((groups, b, h, w, c), dtype=f32, device=dev)
     dcin = torch.empty((b * regions, groups, m, c), dtype=f32, device=dev)
     wpart = torch.empty((b * regions, 3 * c * inner + 2 * inner), dtype=f32, device=dev)
     dab = torch.empty((b * regions * groups, 2), dtype=f32, device=dev)
     epart = torch.empty((b, tiles, 2 + c), dtype=f32, device=dev)
-    assign = torch.empty(per_token, dtype=torch.int8, device=dev) if return_assign else None
+    assign = torch.empty(per_token, dtype=torch.int8, device=dev) if remat else None
+    win = torch.empty((*per_token, 2), dtype=f32, device=dev) if remat else None
     kernels.mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals,
-                            dxn, scratch, dcin, wpart, dab, epart, assign, groups=groups,
-                            tiles=tiles, **kw)
-    LAUNCHES["mixer_block_bwd" if residuals is not None else "mixer_block_bwd_remat"] += 1
+                            dxn, scratch, dcin, wpart, dab, epart, assign, win, groups=groups,
+                            tiles=tiles, tc=tc, **kw)
+    key = "mixer_block_bwd_remat" if remat else "mixer_block_bwd"
+    LAUNCHES[key] += 1
+    PATHS[f"{key}/{'tc' if tc else 'fma'}"] += 1
     tot = wpart.sum(0)
     o = c * inner
     out = (dxn, tot[:o].view(c, inner), tot[3 * o:3 * o + inner], tot[o:2 * o].view(c, inner),

@@ -53,7 +53,7 @@ _F = ctypes.c_float
 _SIGS = {
     "mixer_block": [_P] * 15 + [_I] * 12 + [_P],
     "mlp_block": [_P] * 8 + [_I] * 5 + [_P],
-    "mixer_block_bwd": [_P] * 20 + [_I] * 12 + [_P],
+    "mixer_block_bwd": [_P] * 21 + [_I] * 13 + [_P],
     "mlp_block_bwd": [_P] * 9 + [_I] * 5 + [_P],
     "cluster_mix": [_P] * 5 + [_I] * 9 + [_P],
     "cluster_mix_bwd": [_P] * 8 + [_I] * 9 + [_P],
@@ -64,7 +64,8 @@ _SIGS = {
 # element types each source is instantiated for (entry = "<source>_<suffix>")
 _SUFFIXES = {"simota_assign": ("f32",)}
 # further entries of a library: name -> (argument types, result type)
-_EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 7, _I)},
+_EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 8, _I),
+                              "mixer_block_bwd_info": ([_I] * 8 + [_P], _I)},
           "mixer_block": {**{f"mixer_block_ablate_{t}": ([_P] * 12 + [_I] * 14 + [_P] * 2, _I)
                              for t in ("bf16", "f32")},
                           "mixer_block_groups": ([_I] * 9, _I),
@@ -176,18 +177,23 @@ def mixer_cluster_size(heads: int, regions: int, device: torch.device,
     SMs (every CTA of a cluster re-reads its whole region): then the smallest
     divisor of `heads` (at most 8, the portable cluster size) that gives that
     many blocks, or the largest such divisor."""
-    sms = _sms(device)
+    return cluster_divisor(heads, regions, _sms(device), fill)
+
+
+def cluster_divisor(heads: int, regions: int, sms: int, fill: float = 1.0) -> int:
+    """`mixer_cluster_size` for a card of `sms` SMs."""
     divisors = [d for d in range(1, 9) if heads % d == 0]
     return next((d for d in divisors if regions * d >= fill * sms), divisors[-1])
 
 
 def mixer_feat_on_tensor_cores(c: int, head_dim: int, dtype: torch.dtype) -> bool:
     """Whether K2 runs its feat product on tensor cores (`feat_chunk_mma` in
-    csrc/mixer_block.cuh): bf16, C a multiple of 16 (the k-steps) and the
-    head width a multiple of 8 (so every head grouping's columns are whole
-    n-tiles, and K6/K6r, grouped otherwise, take the same path).  Else the
-    CUDA-core FMA path.  `asy::mix::feat_on_tc` makes the choice in the
-    kernels; K2 refuses a launch whose `tc` differs from it."""
+    csrc/mixer_block.cuh), and K6/K6r their feat, dxn-share and dWf
+    products: bf16, C a multiple of 16 (the k-steps) and the head width a
+    multiple of 8 (so every head grouping's columns are whole n-tiles, and
+    K6/K6r, grouped otherwise, take the same path).  Else the CUDA-core FMA
+    path.  `asy::mix::feat_on_tc` makes the choice in the kernels; K2, K6
+    and K6r refuse a launch whose `tc` differs from it."""
     return dtype == torch.bfloat16 and c % 16 == 0 and head_dim % 8 == 0
 
 
@@ -267,8 +273,8 @@ def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, 
 _MLP_BWD_MMA_TOKENS = 128
 _MLP_BWD_CHUNK_FLOATS = 16384
 _MLP_BWD_SUB = 32
-# tokens per block of the mixer backward's epilogue (kTile in the source)
-_MIXER_BWD_TILE = 256
+# tokens per thread of the mixer backward's epilogue (kEpiRows in the source)
+_MIXER_BWD_EPI_ROWS = 8
 
 
 def mlp_bwd_chunks(hw: int, c: int, hid: int, dtype: torch.dtype) -> int:
@@ -282,24 +288,53 @@ def mlp_bwd_chunks(hw: int, c: int, hid: int, dtype: torch.dtype) -> int:
 
 
 def mixer_bwd_groups(c: int, inner: int, heads: int, regions: int, proposal_h: int,
-                     proposal_w: int, remat: bool, device: torch.device) -> int:
+                     proposal_w: int, remat: bool, device: torch.device,
+                     dtype: torch.dtype) -> int:
     """Head groups per region of the mixer backward (K6, or K6r with
-    `remat`): each keeps an f32 dxn plane, so it fills only half the SMs
-    (`mixer_cluster_size`) before it splits a region further; more groups
-    where a block would not fit in shared memory.  Raises if none fits."""
+    `remat`) on `dtype` operands: each keeps an f32 dxn plane, so it fills
+    only half the SMs (`mixer_cluster_size`) before it splits a region
+    further; more groups where a block would not fit in shared memory.
+    Raises if none fits.  Cached by shape: the train step asks 27 times."""
+    return _mixer_bwd_groups(dtype.itemsize, c, inner, heads,
+                             regions, proposal_h, proposal_w, bool(remat), device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mixer_bwd_groups(esz, c, inner, heads, regions, proposal_h, proposal_w, remat, device):
     least = mixer_cluster_size(heads, regions, device, fill=0.5)
     with torch.cuda.device(device):
         g = load("mixer_block_bwd").mixer_block_bwd_groups(
-            c, inner, heads, proposal_h, proposal_w, least, int(remat))
+            esz, c, inner, heads, proposal_h, proposal_w, least, int(remat))
     if g < 1:
         raise RuntimeError(f"mixer_block_bwd: no head grouping of C={c}, I={inner}, "
                            f"heads={heads} fits in shared memory")
     return g
 
 
-def mixer_bwd_tiles(hw: int) -> int:
+def mixer_block_bwd_info(dtype, c, inner, heads, proposal_h, proposal_w, groups, remat,
+                         device) -> dict:
+    """The mixer backward's main kernel (K6, or K6r with `remat`) as launched
+    with `groups` head groups: its dynamic shared memory (bytes), CTAs per
+    SM, registers and threads per CTA."""
+    out = torch.zeros(4, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = load("mixer_block_bwd").mixer_block_bwd_info(
+            torch.empty((), dtype=dtype).element_size(), c, inner, heads, proposal_h,
+            proposal_w, groups, int(remat), out.data_ptr())
+    if err:
+        raise RuntimeError(f"mixer_block_bwd_info: code {err}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "registers", "threads"), out.tolist()))
+
+
+def mixer_bwd_epi_tile(c: int) -> int:
+    """Tokens per epilogue block of the mixer backward: 8 for each of the
+    256 // c threads that share a channel (`epi_tile` in the source)."""
+    return _MIXER_BWD_EPI_ROWS * max(1, 256 // c)
+
+
+def mixer_bwd_tiles(hw: int, c: int) -> int:
     """Epilogue blocks per sample of the mixer backward."""
-    return -(-hw // _MIXER_BWD_TILE)
+    return -(-hw // mixer_bwd_epi_tile(c))
 
 
 def mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, chunks) -> None:
@@ -312,19 +347,23 @@ def mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, chunks) -> None:
 
 
 def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, pack, dxn, scratch,
-                    dcin, wpart, dab, epart, assign, *, groups, tiles, heads, fold_h,
-                    fold_w, proposal_h, proposal_w) -> None:
+                    dcin, wpart, dab, epart, assign, win, *, groups, tiles, tc, heads,
+                    fold_h, fold_w, proposal_h, proposal_w) -> None:
     """Launch the two mixer-half backward kernels (per region and head group,
-    then the dxn epilogue): K6 with the residual `pack`, K6r with None (then
-    `assign`, if not None, receives the assignment K6r rebuilt); tensors are
-    checked by the caller."""
+    then the dxn epilogue): K6 with the residual `pack` (`assign`, `win`
+    None), K6r with None: it writes the assignment it rebuilds to `assign`
+    (B, H, W, heads) int8 and the winners' (cosine, raw product) to `win`
+    (B, H, W, heads, 2) f32, which its second sweep reads back.  `tc`:
+    whether the products run on tensor cores (mixer_feat_on_tensor_cores),
+    which the kernel confirms: it refuses a `tc` other than its own choice.
+    Tensors are checked by the caller."""
     b, h, w, c = x.shape
     cbest, argf, crep, oc = pack if pack is not None else (None,) * 4
     _call("mixer_block_bwd", x, _ptr(x), _ptr(g), _ptr(stats), _ptr(wf), _ptr(bf),
           _ptr(wv), _ptr(bv), _ptr(w2), _ptr(alpha_beta), _ptr(cbest), _ptr(argf),
           _ptr(crep), _ptr(oc), _ptr(dxn), _ptr(scratch), _ptr(dcin), _ptr(wpart),
-          _ptr(dab), _ptr(epart), _ptr(assign), b, h, w, c, wf.shape[1], heads, fold_h,
-          fold_w, proposal_h, proposal_w, groups, tiles)
+          _ptr(dab), _ptr(epart), _ptr(assign), _ptr(win), b, h, w, c, wf.shape[1], heads,
+          fold_h, fold_w, proposal_h, proposal_w, groups, tiles, int(tc))
 
 
 # K1's tensor-core path: tokens per CTA, widest first (4 warps a CTA; with

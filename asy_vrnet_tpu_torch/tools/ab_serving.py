@@ -1,7 +1,8 @@
-"""Measurements of the serving path's two kernels (K2, K1) and its forward,
-for comparing two checkouts of the port on one card.
+"""Measurements of the serving path's two kernels (K2, K1), its forward and
+the mixer half's backward (K6, K6r), for comparing two checkouts of the
+port on one card.
 
-    cd <checkout> && python <this file> {check|time|forward} [--tag NAME]
+    cd <checkout> && python <this file> {check|time|time-bwd|forward} [--tag NAME]
 
 The port is imported from the current directory, so one copy of this file
 measures any checkout whose `ops/block.py`, `ops/kernels.py` and
@@ -21,6 +22,14 @@ prints one line per record, `AB {json}`, with the tag.
   a profiler trace, CUDA-event ms per launch (20 launches), and the host's
   microseconds per wrapper call (200 calls without a synchronise, median of
   5).
+- time-bwd: K6 (fed K2's residual pack) and K6r at the 7 shapes, batch 16
+  (the train batch), bf16: per launch of the wrapper, the device ms of the
+  main kernel, of the dxn epilogue and of the wrapper's torch sums from a
+  profiler trace, CUDA-event ms (20 launches), host microseconds per call;
+  the head groups G and CTAs, and where the checkout reports them
+  (`kernels.mixer_block_bwd_info`, `block.PATHS`) the CTAs per SM,
+  registers, shared memory and the path each launch took; then each
+  kernel's per-step sums (calls per train step x ms).
 - forward: the r05 weights (`--weights`, by default the checkout's) in
   nano coc_small at 512^2, bf16; CUDA-event ms per forward at batch 8 and
   32, 5 repeats of 10 forwards.
@@ -28,6 +37,7 @@ prints one line per record, `AB {json}`, with the tag.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -107,14 +117,27 @@ def check(dev, emit):
                 emit(rec)
 
 
-def _device_ms(fn, kernel, iters=20):
+def _trace_rows(fn, iters=20):
+    """{kernel name: (device ms, launches)} per fn() call, from one trace."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    rows = {}
     with tempfile.TemporaryDirectory() as d:
         traced(lambda: [fn() for _ in range(iters)], d, on_card=True)
-        rows = [v for (nm, _), v in kernel_table(d, iters).items() if kernel in nm]
-    return sum(ms for ms, _ in rows) / max(1, sum(k for _, k in rows))
+        for (nm, _), (ms, k) in kernel_table(d, iters).items():
+            t, n = rows.get(nm, (0.0, 0.0))
+            rows[nm] = (t + ms, n + k)
+    return rows
+
+
+def _per_launch(rows, kernel):
+    hit = [v for nm, v in rows.items() if kernel in nm]
+    return sum(ms for ms, _ in hit) / max(1e-9, sum(k for _, k in hit)) if hit else None
+
+
+def _device_ms(fn, kernel, iters=20):
+    return _per_launch(_trace_rows(fn, iters), kernel) or 0.0
 
 
 def _host_us(fn, calls=200, reps=5):
@@ -146,6 +169,56 @@ def timing(dev, emit):
         emit(rec)
 
 
+def time_bwd(dev, emit, batch=16):
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    paths = getattr(block, "PATHS", {})
+    step = {}  # per kernel: the sums over shapes of calls x ms
+    # the head groups depend on the element size since the tensor-core tiles
+    by_dtype = ({"dtype": torch.bfloat16}
+                if "dtype" in inspect.signature(kernels.mixer_bwd_groups).parameters else {})
+    for (name, _, h, w, c, heads, d, fold, hid, calls) in SHAPES:
+        n, mixer, _ = _weights(c, heads * d, hid, 0)
+        x = n(batch, h, w, c).to(dev, torch.bfloat16)
+        gy = (n(batch, h, w, c) * 0.5).to(dev, torch.bfloat16)
+        st = block.gn1_stats(x)
+        mw = _cast(mixer, torch.bfloat16, dev)
+        wf, bf, wv, bv, w2, _, ab = mw
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        _, _, pack = block.mixer_block(x, st, *mw, return_residuals=True, **kw)
+        for k, res in (("k6", pack), ("k6r", None)):
+            def fn(res=res):
+                return block.mixer_block_bwd(x, gy, st, wf, bf, wv, bv, w2, ab, res, **kw)
+
+            before = dict(paths)
+            fn()
+            torch.cuda.synchronize()
+            groups = kernels.mixer_bwd_groups(c, heads * d, heads, batch * fold * fold, 2, 2,
+                                              res is None, dev, **by_dtype)
+            rec = {"mode": "time-bwd", "kernel": k, "shape": name, "b": batch, "calls": calls,
+                   "groups": groups, "ctas": batch * fold * fold * groups,
+                   "path": {p: v - before.get(p, 0) for p, v in paths.items()
+                            if v != before.get(p, 0)} or None}
+            if hasattr(kernels, "mixer_block_bwd_info"):
+                rec.update(kernels.mixer_block_bwd_info(torch.bfloat16, c, heads * d, heads, 2,
+                                                        2, groups, res is None, dev))
+            rows = _trace_rows(fn)
+            main_ms = _per_launch(rows, "mixer_bwd_kernel")
+            epi_ms = _per_launch(rows, "mixer_bwd_epilogue")
+            launches = sum(n for nm, (_, n) in rows.items() if "mixer_bwd_kernel" in nm)
+            other = sum(ms for nm, (ms, _) in rows.items()
+                        if "mixer_bwd_kernel" not in nm and "mixer_bwd_epilogue" not in nm)
+            rec.update(main_device_ms=main_ms, epilogue_device_ms=epi_ms,
+                       torch_device_ms=other / max(1e-9, launches),
+                       events_ms=cuda_ms(fn, 20), host_us=_host_us(fn, calls=50))
+            emit(rec)
+            tot = step.setdefault(k, {})
+            for f in ("main_device_ms", "epilogue_device_ms", "torch_device_ms", "events_ms"):
+                tot[f] = tot.get(f, 0.0) + calls * (rec[f] or 0.0)
+    for k, tot in step.items():
+        emit({"mode": "time-bwd", "kernel": k, "shape": "per step", "b": batch, **tot})
+
+
 def forward(dev, emit, weights=R05):
     from asy_vrnet_tpu_torch.config import ModelConfig
     from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
@@ -165,7 +238,7 @@ def forward(dev, emit, weights=R05):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("check", "time", "forward"))
+    ap.add_argument("mode", choices=("check", "time", "time-bwd", "forward"))
     ap.add_argument("--tag", default=os.path.basename(os.getcwd()))
     ap.add_argument("--weights", default=R05, help="forward: the r05 weights (.npz)")
     args = ap.parse_args(argv)
@@ -181,7 +254,7 @@ def main(argv=None):
     if args.mode == "forward":
         forward(dev, emit, args.weights)
     else:
-        {"check": check, "time": timing}[args.mode](dev, emit)
+        {"check": check, "time": timing, "time-bwd": time_bwd}[args.mode](dev, emit)
 
 
 if __name__ == "__main__":

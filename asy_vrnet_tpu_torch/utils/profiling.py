@@ -22,8 +22,8 @@ import torch
 # lower-cased kernel name), first match wins
 CATEGORIES = (
     ("cluster_mix_bwd (ours)", ("cluster_mix_bwd",)),
-    ("mixer_block_bwd_remat (ours)", ("mixer_bwd_kernel<__nv_bfloat16, true>",
-                                      "mixer_bwd_kernel<float, true>")),
+    ("mixer_block_bwd_remat (ours)", ("mixer_bwd_kernel<__nv_bfloat16, true,",
+                                      "mixer_bwd_kernel<float, true,")),
     ("cluster_mix (ours)", ("cluster_mix",)),
     ("mixer_block_bwd (ours)", ("mixer_bwd",)),
     ("mlp_block_bwd (ours)", ("mlp_block_bwd",)),

@@ -37,14 +37,17 @@ Phases (each raises on failure; nothing is caught):
      and proposal per (token, head), raw and mixed centers) against the
      twin's, the MLP-half backward kernel (K5) against its twin, and the
      mixer-half backward kernel (K6) against its twin with both fed the
-     kernel's pack; two runs of each give equal bits; times and bounds;
+     kernel's pack; two runs of each give equal bits; K6's products on
+     tensor cores in bf16, on CUDA cores in f32 (`block.PATHS`); times and
+     bounds;
  7b. kernels of the memory settings, at the same shapes, batch 16, f32 and
      bf16: K6r (the full-remat mixer backward, ASY_MIXER_BWD_RESIDUALS=0)
      against its twin fed K6r's own assignment, which must equal the one K2
      stored in its pack bit for bit, and against K6 fed that pack (the same
      function); K1 with z1 (ASY_MLP_BWD_RESIDUALS=1: the same output bits as
      K1, z1 against the twin's) and K5 reading it against its twin fed the
-     same z1; two runs of each give equal bits; times and bounds;
+     same z1; two runs of each give equal bits; K6r's path as K6's; times
+     and bounds;
   8. kernels, stand-alone cluster mix: K7 (cluster_mix) and K7b
      (cluster_mix_bwd) against their twins at the four shapes the
      stochastic-depth step gives them, batch 16, f32 and bf16:
@@ -58,7 +61,8 @@ Phases (each raises on failure; nothing is caught):
      lr from `adaptive_lr`; launch counters reset before the first step and
      read after it (mixer_block, mlp_block, mixer_block_bwd, mlp_block_bwd 27
      each, cluster_mix and cluster_mix_bwd 0, seg_loss_sums 1,
-     seg_loss_dlogits 1, simota_assign >= 1); losses finite, num_fg > 0,
+     seg_loss_dlogits 1, simota_assign >= 1; every K6 and K6r launch of
+     every bf16 train path on tensor cores); losses finite, num_fg > 0,
      parameters, EMA and BN running stats moved; the same first step through
      the plain twins from the same start;
  10. the module-path train step (`use_pallas_cluster=False`, every block
@@ -648,10 +652,13 @@ def check_remat_z1(dev):
             wf, bf, wv, bv, w2, _, ab = mw
             margs = (x, gy, st, wf, bf, wv, bv, w2, ab)
             _, _, pack = block.mixer_block(x, st, *mw, return_residuals=True, **kw)
+            path = f"mixer_block_bwd_remat/{'tc' if dt == torch.bfloat16 else 'fma'}"
+            on_path = block.PATHS[path]
             *got, asg = block.mixer_block_bwd(*margs, None, return_assign=True, **kw)
             again = block.mixer_block_bwd(*margs, None, **kw)
             torch.cuda.synchronize()
             check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K6r bits {tag}")
+            check(block.PATHS[path] == on_path + 2, f"K6r products' path {tag}")
             same = torch.equal(asg, pack[1])
             log(f"[check mixer_block_bwd_remat {tag}] rebuilt assignment equals K2's, bit "
                 f"for bit: {same} ({(asg == pack[1]).float().mean().item():.6f} equal)")
@@ -1351,10 +1358,13 @@ def main() -> int:
                 check(errs[2].mean().item() <= 0.02 * scales[2], f"pack oc {tag}")
             wf, bf, wv, bv, w2, _, ab = mw
             margs = (x, gy, st, wf, bf, wv, bv, w2, ab, pack)
+            path = f"mixer_block_bwd/{'tc' if dt == torch.bfloat16 else 'fma'}"
+            on_path = block.PATHS[path]
             got = block.mixer_block_bwd(*margs, **kw)
             again = block.mixer_block_bwd(*margs, **kw)
             torch.cuda.synchronize()
             check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K6 bits {tag}")
+            check(block.PATHS[path] == on_path + 2, f"K6 products' path {tag}")
             want = block.mixer_block_bwd_plain(*margs, **kw)
             names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
             merr = [close_bwd("mixer_block_bwd", n, a, r, dt, want[0])
@@ -1467,12 +1477,19 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         reset_launches(*counters)
+        for k in block.PATHS:
+            block.PATHS[k] = 0
         state, first = step(state, batches[0])
         torch.cuda.synchronize()
         launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
-        log(f"[train {tag}] launches in one step {launches}")
+        log(f"[train {tag}] launches in one step {launches}; backward paths "
+            f"{ {k: v for k, v in block.PATHS.items() if k.startswith('mixer_block_bwd')} }")
         check({k: launches[k] for k in want} == want and launches["simota_assign"] >= 1,
               launches)
+        # bf16: every K6 and K6r launch ran its products on tensor cores
+        for key in ("mixer_block_bwd", "mixer_block_bwd_remat"):
+            check(block.PATHS[f"{key}/tc"] == launches[key] and not block.PATHS[f"{key}/fma"],
+                  f"{tag}: {key} on tensor cores in every launch")
         history = [{k: float(v) for k, v in first.items()}]
         for bt in batches[1:steps]:
             state, m = step(state, bt)
@@ -1594,6 +1611,8 @@ def main() -> int:
         f"{olosses[-1]:.4f} (min {min(olosses):.4f}); block launches "
         f"{ {k: block.LAUNCHES[k] - before[k] for k in before} }")
     check(block.LAUNCHES["mixer_block_bwd"] > before["mixer_block_bwd"], "overfit ran K6")
+    check(block.PATHS["mixer_block_bwd/fma"] >= block.LAUNCHES["mixer_block_bwd"]
+          - before["mixer_block_bwd"], "f32 K6 on the CUDA cores")
     check(all(np.isfinite(olosses)) and olosses[-1] < olosses[0], "overfit loss falls")
     del ostate
 

@@ -20,7 +20,8 @@ import numpy as np
 import pytest
 import torch
 
-from asy_vrnet_tpu_torch.ops import block, boxes, cluster_fused, losses_seg_fused, simota_fused
+from asy_vrnet_tpu_torch.ops import (block, boxes, cluster_fused, kernels, losses_seg_fused,
+                                     simota_fused)
 
 pytestmark = pytest.mark.cuda
 
@@ -202,6 +203,30 @@ def test_kernels_refuse_a_path_their_shape_does_not_take(dev):
     assert kernels.mlp_tokens(x, w1, w2m) > 0
     with pytest.raises(RuntimeError, match="mlp_block kernel launch failed"):
         kernels.mlp_block(x, st, w1, b1, w2m, b2m, torch.empty_like(x), None, 0)
+
+
+def test_mixer_bwd_refuses_a_path_its_shape_does_not_take(dev):
+    """K6/K6r's `tc` confirms the products' path, as K2's does: the other
+    path raises."""
+    shape = SHAPES[2]
+    x, gy, st, args, kw = _mixer_setup(dev, shape, torch.bfloat16, 16)
+    b, h, w, c = x.shape
+    wf, bf, wv, bv, w2, _, ab = args
+    heads, fold, inner = kw["heads"], kw["fold_h"], wf.shape[1]
+    f32 = torch.float32
+    g = kernels.mixer_bwd_groups(c, inner, heads, b * fold * fold, 2, 2, True, dev, x.dtype)
+    tiles = kernels.mixer_bwd_tiles(h * w, c)
+    bufs = (torch.empty_like(x), torch.empty((g, b, h, w, c), dtype=f32, device=dev),
+            torch.empty((b * fold * fold, g, 4, c), dtype=f32, device=dev),
+            torch.empty((b * fold * fold, 3 * c * inner + 2 * inner), dtype=f32, device=dev),
+            torch.empty((b * fold * fold * g, 2), dtype=f32, device=dev),
+            torch.empty((b, tiles, 2 + c), dtype=f32, device=dev),
+            torch.empty((b, h, w, heads), dtype=torch.int8, device=dev),
+            torch.empty((b, h, w, heads, 2), dtype=f32, device=dev))
+    assert kernels.mixer_feat_on_tensor_cores(c, inner // heads, x.dtype)
+    with pytest.raises(RuntimeError, match="mixer_block_bwd kernel launch failed"):
+        kernels.mixer_block_bwd(x, gy, st, wf, bf, wv, bv, w2, ab, None, *bufs, groups=g,
+                                tiles=tiles, tc=False, **kw)
 
 
 def _mlp_close(out, ref, dt):
@@ -481,6 +506,16 @@ def _bwd_close(name, got, want, dt, dxn_ref=None):
         assert err <= 0.02 * max(scale, 1e-6), (name, err, scale)
 
 
+def _bwd_paths(key, shape, dt):
+    """The PATHS counter the mixer backward `key` advances at this shape:
+    bf16 at every nano shape runs its products on tensor cores."""
+    _, b, h, w, c, heads, d, fold, hid = shape
+    tc = kernels.mixer_feat_on_tensor_cores(c, d, dt)
+    if dt == torch.bfloat16 and not shape[0].startswith("tiny"):
+        assert tc, shape[0]
+    return f"{key}/{'tc' if tc else 'fma'}"
+
+
 def _mixer_setup(dev, shape, dt, seed):
     _, b, h, w, c, heads, d, fold, hid = shape
     n, mixer, _ = _weights(c, heads * d, hid, seed)
@@ -525,10 +560,13 @@ def test_mixer_bwd_kernel_matches_plain(dev, shape, dt):
     wf, bf, wv, bv, w2, _, ab = args
     _, _, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
     before = block.LAUNCHES["mixer_block_bwd"]
+    path = _bwd_paths("mixer_block_bwd", shape, dt)
+    on_path = block.PATHS[path]
     got = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
     again = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
     torch.cuda.synchronize()
     assert block.LAUNCHES["mixer_block_bwd"] == before + 2
+    assert block.PATHS[path] == on_path + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = block.mixer_block_bwd_plain(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
     assert got[0].dtype == dt and got[0].shape == x.shape
@@ -572,14 +610,52 @@ def test_mixer_bwd_remat_kernel_matches_plain(dev, shape, dt):
     wf, bf, wv, bv, w2, _, ab = args
     _, _, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
     before = block.LAUNCHES["mixer_block_bwd_remat"]
+    path = _bwd_paths("mixer_block_bwd_remat", shape, dt)
+    on_path = block.PATHS[path]
     *got, asg = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, None,
                                       return_assign=True, **kw)
-    again = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, None, **kw)
+    *again, asg2 = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, None,
+                                         return_assign=True, **kw)
     torch.cuda.synchronize()
     assert block.LAUNCHES["mixer_block_bwd_remat"] == before + 2
+    assert block.PATHS[path] == on_path + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
-    assert torch.equal(asg, pack[1])
+    # the assignment K6r rebuilt (once a call) is K2's, bit for bit, twice
+    assert torch.equal(asg, pack[1]) and torch.equal(asg2, pack[1])
     want = block.mixer_block_bwd_remat_plain(x, g, st, wf, bf, wv, bv, w2, ab, assign=asg, **kw)
+    names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
+    for name, a, w_ in zip(names, got, want):
+        _bwd_close(name, a, w_, dt, want[0])
+
+
+# regions of fewer tokens than one 32-token chunk (nano at 128^2: 16 and 4
+# tokens), where sweep 2's first chunk is sweep 1's only one
+SMALL_REGIONS = [("stage0_128", 2, 32, 32, 16, 4, 32, 8, 128),
+                 ("p5_128", 2, 4, 4, 128, 4, 24, 2, 512),
+                 ("p3_128", 2, 16, 16, 64, 4, 24, 2, 256)]
+
+
+@pytest.mark.parametrize("shape", SMALL_REGIONS, ids=[s[0] for s in SMALL_REGIONS])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("remat", [False, True], ids=["k6", "k6r"])
+def test_mixer_bwd_small_regions(dev, shape, dt, remat):
+    x, g, st, args, kw = _mixer_setup(dev, shape, dt, 9)
+    wf, bf, wv, bv, w2, _, ab = args
+    _, _, pack = block.mixer_block(x, st, *args, return_residuals=True, **kw)
+    res = None if remat else pack
+    got = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, res, return_assign=remat,
+                                **kw)
+    again = block.mixer_block_bwd(x, g, st, wf, bf, wv, bv, w2, ab, res, return_assign=remat,
+                                  **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if remat:
+        *got, asg = got
+        assert torch.equal(asg, pack[1])
+        want = block.mixer_block_bwd_remat_plain(x, g, st, wf, bf, wv, bv, w2, ab, assign=asg,
+                                                 **kw)
+    else:
+        want = block.mixer_block_bwd_plain(x, g, st, wf, bf, wv, bv, w2, ab, pack, **kw)
     names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
     for name, a, w_ in zip(names, got, want):
         _bwd_close(name, a, w_, dt, want[0])

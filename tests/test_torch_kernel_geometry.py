@@ -1,7 +1,9 @@
-"""Launch geometry of the forward block kernels, as pure functions of the
-shape (no card needed): K1's tokens per CTA (`ops/kernels.py::
-mlp_tokens_per_cta`, the SM count passed in) and its tensor-core predicate,
-and K2's feat path (tensor cores or CUDA cores) by C, head width and dtype.
+"""Launch geometry of the block kernels, as pure functions of the shape (no
+card needed): K1's tokens per CTA (`ops/kernels.py::mlp_tokens_per_cta`,
+the SM count passed in) and its tensor-core predicate, K2's feat path
+(tensor cores or CUDA cores) by C, head width and dtype, and the mixer
+backward's (K6, K6r) head groups before the shared-memory fit, products'
+path and epilogue tiles.
 """
 import pytest
 import torch
@@ -67,3 +69,54 @@ def test_mixer_feat_path(c, d, dtype, tc):
 ])
 def test_mlp_mma_shape(c, hid, dtype, mma):
     assert kernels.mlp_mma_shape(c, hid, dtype) is mma
+
+
+# ---------------------------------------------------------------------------
+# The mixer backward (K6, K6r) at the train batch: its head groups before the
+# shared-memory fit (which only the card can test), its products' path and
+# its epilogue's tiles.
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH = 16
+# (region side in tokens, fold) of each main-path block; 2x2 proposals
+FOLDS = {"stage0": 8, "stage1": 4, "stage2": 2, "stage3": 1, "p5": 2, "p4": 2, "p3": 2}
+
+
+def test_mixer_bwd_head_groups_at_the_train_batch():
+    groups = {}
+    for name, hw, c, heads, d, hid in MAIN_PATH:
+        regions = TRAIN_BATCH * FOLDS[name] ** 2
+        g = kernels.cluster_divisor(heads, regions, H100_SMS, fill=0.5)
+        assert heads % g == 0 and heads // g <= 16, name   # the kernel's item prefetch
+        # half the SMs get a block, or every head has its own group
+        assert regions * g >= H100_SMS / 2 or g == heads or g == 8, name
+        groups[name] = g
+    assert groups == {"stage0": 1, "stage1": 1, "stage2": 2, "stage3": 8, "p5": 2, "p4": 2,
+                      "p3": 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_mixer_bwd_products_path(dtype):
+    """In bf16 every main-path shape runs K6's and K6r's products on tensor
+    cores (the predicate K2's feat takes); f32 keeps the CUDA cores."""
+    for name, hw, c, heads, d, hid in MAIN_PATH:
+        tc = kernels.mixer_feat_on_tensor_cores(c, d, dtype)
+        assert tc is (dtype == torch.bfloat16), name
+        for kernel in ("mixer_block_bwd", "mixer_block_bwd_remat"):
+            assert f"{kernel}/{'tc' if tc else 'fma'}" in block.PATHS
+
+
+@pytest.mark.parametrize("c, tile", [(16, 128), (32, 64), (64, 32), (80, 24), (128, 16),
+                                     (160, 8), (256, 8), (512, 8)])
+def test_mixer_bwd_epilogue_tile(c, tile):
+    """8 tokens per thread, 256 // c threads per channel."""
+    assert kernels.mixer_bwd_epi_tile(c) == tile
+    assert kernels.mixer_bwd_tiles(1, c) == 1
+    assert kernels.mixer_bwd_tiles(tile, c) == 1 and kernels.mixer_bwd_tiles(tile + 1, c) == 2
+
+
+def test_mixer_bwd_epilogue_fills_the_card_at_the_train_batch():
+    """Every main-path shape gives the epilogue at least one block per SM
+    (256 tokens a block left stage 3 with 16 blocks)."""
+    for name, hw, c, heads, d, hid in MAIN_PATH:
+        assert TRAIN_BATCH * kernels.mixer_bwd_tiles(hw, c) >= H100_SMS, name
