@@ -18,13 +18,13 @@
 // dense masked matmuls over (region group x head) rows, ~16x redundant
 // products that keep a 128-wide matrix unit busy, are not carried over.
 //
-// Design.  One CTA of 256 threads per (sample, region, head); the head's
-// D channels of the region are read from device memory (L2 after the first
-// pass):
+// Design.  One CTA of 256 threads per (sample, region, head); the region's
+// tiles of feat and value are staged in shared memory once (cp.async) where
+// they fit:
 //   A. pool the M proposal windows of feat and value (cluster_mix.cuh);
-//   B. one warp per token: norm, cosines to the M centers, first max,
-//      sigmoid of the winner (cluster_mix.cuh); per token the winner's sim
-//      and proposal stay in shared memory;
+//   B. 4 tokens a warp, 8 lanes a token: norm, cosines to the M centers,
+//      first max, sigmoid of the winner (cluster_mix.cuh); per token the
+//      winner's sim and proposal stay in shared memory;
 //   C. each warp sums rnd(sim) * value over its tokens into its own
 //      [M][D] partial (lane = channel: no races), and counts; the 8
 //      partials are added in a fixed order (the same bits on every run);
@@ -36,31 +36,41 @@ namespace {
 
 using namespace asy::cmix;
 
-struct Layout {  // offsets in floats; the per-token proposals follow
-  size_t win, crep, vc, invc, cn, cnr, xrow, aggp, cntp, s, floats, arg, bytes;
+struct Layout {  // byte offsets; the tiles first (16-byte aligned)
+  size_t xs, vs, win, crep, vc, invc, cn, cnr, aggp, cntp, s, arg, bytes;
+  int vec;      // cp.async width of the staging copies (0: plain copies)
+  bool staged;  // the tiles are in shared memory
 };
 
-inline Layout layout(const Geo& g) {
-  const size_t md = (size_t)g.M * g.D;
+inline Layout layout(const Geo& g, size_t esz, bool staged, int vec) {
+  const size_t md = (size_t)g.M * g.D * 4, tile = ((size_t)g.N * g.D * esz + 15) / 16 * 16;
   Layout L;
   size_t o = 0;
-  L.win = o;  o += (size_t)kWindowFloats * g.M;
+  L.staged = staged;
+  L.vec = vec;
+  L.xs = o;   o += staged ? tile : 0;
+  L.vs = o;   o += staged ? tile : 0;
+  L.win = o;  o += (size_t)kWindowFloats * g.M * 4;
   L.crep = o; o += md;
   L.vc = o;   o += md;
-  L.invc = o; o += g.M;
+  L.invc = o; o += (size_t)g.M * 4;
   L.cn = o;   o += md;
   L.cnr = o;  o += md;
-  L.xrow = o; o += (size_t)kWarps * g.D;
   L.aggp = o; o += (size_t)kWarps * md;
-  L.cntp = o; o += (size_t)kWarps * g.M;
-  L.s = o;    o += g.N;
-  L.floats = o;
-  L.arg = o * sizeof(float);
-  L.bytes = L.arg + g.N;
+  L.cntp = o; o += (size_t)kWarps * g.M * 4;
+  L.s = o;    o += (size_t)g.N * 4;
+  L.arg = o;  o += g.N;
+  L.bytes = (o + 15) / 16 * 16;
   return L;
 }
 
-template <typename T>
+// The layout a launch takes: staged where the card's shared memory holds it.
+inline Layout pick_layout(const Geo& g, size_t esz, int vec) {
+  const Layout L = layout(g, esz, true, vec);
+  return L.bytes <= smem_optin() ? L : layout(g, esz, false, vec);
+}
+
+template <typename T, bool kFast, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 cluster_mix_kernel(const T* __restrict__ x, const T* __restrict__ v,
                    const float* __restrict__ ab, T* __restrict__ out,
@@ -68,32 +78,43 @@ cluster_mix_kernel(const T* __restrict__ x, const T* __restrict__ v,
   using asy::rnd;
   using asy::to_f;
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
-  Window* win = reinterpret_cast<Window*>(sm + L.win);  // [M]
-  float* crep = sm + L.crep;  // [M][D]; after C: the rounded mixed centers
-  float* vc = sm + L.vc;      // [M][D]
-  float* invc = sm + L.invc;  // [M]
-  float* cn = sm + L.cn;      // [M][D]
-  float* cnr = sm + L.cnr;    // [M][D]
-  float* xrow = sm + L.xrow;  // [kWarps][D]
-  float* aggp = sm + L.aggp;  // [kWarps][M][D]
-  float* cntp = sm + L.cntp;  // [kWarps][M]
-  float* s = sm + L.s;        // [N] winner's sim
-  unsigned char* arg = reinterpret_cast<unsigned char*>(smem4) + L.arg;  // [N]
+  unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
+  auto fl = [&](size_t o) { return reinterpret_cast<float*>(sb + o); };
+  Window* win = reinterpret_cast<Window*>(sb + L.win);  // [M]
+  float* crep = fl(L.crep);  // [M][D]; after C: the rounded mixed centers
+  float* vc = fl(L.vc);      // [M][D]
+  float* invc = fl(L.invc);  // [M]
+  float* cn = fl(L.cn);      // [M][D]
+  float* cnr = fl(L.cnr);    // [M][D]
+  float* aggp = fl(L.aggp);  // [kWarps][M][D]
+  float* cntp = fl(L.cntp);  // [kWarps][M]
+  float* s = fl(L.s);        // [N] winner's sim
+  unsigned char* arg = sb + L.arg;  // [N]
 
   const int r = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   const int D = g.D, M = g.M, MD = M * D;
+  T* xs = reinterpret_cast<T*>(sb + L.xs);
+  T* vs = reinterpret_cast<T*>(sb + L.vs);
+  const auto X = view<kStaged>(g, x, xs, b, r, h);
+  const auto V = view<kStaged>(g, v, vs, b, r, h);
+  if constexpr (kStaged) {
+    stage(X, x, xs, g.N, L.vec);
+    stage(V, v, vs, g.N, L.vec);
+    asy::cp_async_commit();
+  }
   for (int e = tid; e < kWarps * MD; e += kThreads) aggp[e] = 0.f;
   for (int e = tid; e < kWarps * M; e += kThreads) cntp[e] = 0.f;
+  if constexpr (kStaged) asy::cp_async_wait<0>();
+  __syncthreads();
 
-  centers<T>(g, x, v, b, r, h, win, crep, vc, invc, cn, cnr);
-  assign<T>(g, x, b, r, h, cnr, ab[0], ab[1], xrow, s, arg, nullptr, nullptr);
+  centers<T>(g, X, V, win, crep, vc, invc, cn, cnr);
+  assign<T, kFast>(g, X, cnr, ab[0], ab[1], s, arg, nullptr, nullptr);
 
   // C. per-warp partial sums of rnd(sim) * value, and the counts
   float* ap = aggp + (size_t)w * MD;
   for (int n = w; n < g.N; n += kWarps) {
-    const T* vt = v + token(g, b, r, h, n);
+    const T* vt = V.at(n);
     const int m = arg[n];
     const float sr = rnd<T>(s[n]);
     for (int d = lane; d < D; d += 32)
@@ -112,27 +133,37 @@ cluster_mix_kernel(const T* __restrict__ x, const T* __restrict__ v,
     crep[e] = rnd<T>(__fdiv_rn(__fadd_rn(a, vc[e]), __fadd_rn(c, 1.f)));
   }
   __syncthreads();
+  const float rd = 1.f / D;
   for (int e = tid; e < g.N * D; e += kThreads) {
-    const int n = e / D, d = e % D;
-    out[token(g, b, r, h, n) + d] =
-        asy::from_f<T>(__fmul_rn(rnd<T>(s[n]), crep[arg[n] * D + d]));
+    int d;
+    const int n = asy::div_small(e, D, rd, d);
+    out[X.goff(n) + d] = asy::from_f<T>(__fmul_rn(rnd<T>(s[n]), crep[arg[n] * D + d]));
   }
   if (assign_out != nullptr) store_assign(g, b, r, h, arg, assign_out);
+}
+
+// the instantiation for the fast or general mapping, staged tiles or not
+template <typename T>
+auto kernel_for(bool fast, bool staged) {
+  return fast ? (staged ? cluster_mix_kernel<T, true, true> : cluster_mix_kernel<T, true, false>)
+              : (staged ? cluster_mix_kernel<T, false, true> : cluster_mix_kernel<T, false, false>);
 }
 
 template <typename T>
 int launch(const void* x, const void* v, const float* ab, void* out, int8_t* assign,
            int B, int H, int W, int C, int heads, int fold_h, int fold_w, int ph, int pw,
-           void* stream) {
+           int fast, void* stream) {
   Geo g;
   int err = make_geo(g, B, H, W, C, heads, fold_h, fold_w, ph, pw);
   if (err) return err;
-  const Layout L = layout(g);
-  cudaError_t e = asy::set_smem(cluster_mix_kernel<T>, L.bytes);
+  if (!path_ok(g, fast, {x, v})) return (int)cudaErrorInvalidValue;
+  const Layout L = pick_layout(g, sizeof(T), stage_vec(g, sizeof(T), {x, v}));
+  const auto kernel = kernel_for<T>(fast, L.staged);
+  cudaError_t e = asy::set_smem(kernel, L.bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(fold_h * fold_w, heads, B);
-  cluster_mix_kernel<T><<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)v, ab, (T*)out, assign, g, L);
+  kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>((const T*)x, (const T*)v, ab,
+                                                           (T*)out, assign, g, L);
   return (int)cudaGetLastError();
 }
 
@@ -141,19 +172,50 @@ int launch(const void* x, const void* v, const float* ab, void* out, int8_t* ass
 extern "C" {
 
 // x (feat), v (value), out: (B, H, W, C) NHWC, C = heads * D; ab = [alpha,
-// beta] f32 on the device; assign (B, H, W, heads) int8 or null.
+// beta] f32 on the device; assign (B, H, W, heads) int8 or null; fast: the
+// wrapper's reading of fast_path (a launch that disagrees is refused).
 int cluster_mix_bf16(const void* x, const void* v, const float* ab, void* out,
                      int8_t* assign, int B, int H, int W, int C, int heads, int fold_h,
-                     int fold_w, int ph, int pw, void* stream) {
+                     int fold_w, int ph, int pw, int fast, void* stream) {
   return launch<__nv_bfloat16>(x, v, ab, out, assign, B, H, W, C, heads, fold_h, fold_w,
-                               ph, pw, stream);
+                               ph, pw, fast, stream);
 }
 
 int cluster_mix_f32(const void* x, const void* v, const float* ab, void* out,
                     int8_t* assign, int B, int H, int W, int C, int heads, int fold_h,
-                    int fold_w, int ph, int pw, void* stream) {
+                    int fold_w, int ph, int pw, int fast, void* stream) {
   return launch<float>(x, v, ab, out, assign, B, H, W, C, heads, fold_h, fold_w, ph, pw,
-                       stream);
+                       fast, stream);
+}
+
+// The kernel at this geometry (esz: 2 for bf16, 4 for f32; tensors assumed
+// 16-byte aligned): out = [dynamic shared memory bytes, CTAs per SM,
+// registers per thread, threads per CTA, fast path, tiles staged]
+int cluster_mix_info(int esz, int B, int H, int W, int C, int heads, int fold_h, int fold_w,
+                     int ph, int pw, int* out) {
+  Geo g;
+  int err = make_geo(g, B, H, W, C, heads, fold_h, fold_w, ph, pw);
+  if (err) return err;
+  if (esz != 2 && esz != 4) return (int)cudaErrorInvalidValue;
+  const Layout L = pick_layout(g, esz, stage_vec(g, esz, {}));
+  const bool fast = fast_path(g.D, g.M);
+  const void* kernel = esz == 2 ? (const void*)kernel_for<__nv_bfloat16>(fast, L.staged)
+                                : (const void*)kernel_for<float>(fast, L.staged);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)L.bytes);
+  int per_sm = 0;
+  cudaFuncAttributes attr = {};
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, L.bytes);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = (int)L.bytes;
+  out[1] = per_sm;
+  out[2] = attr.numRegs;
+  out[3] = kThreads;
+  out[4] = fast;
+  out[5] = L.staged;
+  return 0;
 }
 
 }  // extern "C"

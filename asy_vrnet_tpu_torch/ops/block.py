@@ -58,14 +58,16 @@ _GN_EPS = 1e-5
 # mixer_block_bwd_remat, the z1 variants of K1 and K5 are *_z1
 LAUNCHES = {"mixer_block": 0, "mlp_block": 0, "mixer_block_bwd": 0, "mlp_block_bwd": 0,
             "mixer_block_bwd_remat": 0, "mlp_block_z1": 0, "mlp_block_bwd_z1": 0}
-# the same launches of K2, K1, K6 and K6r (either variant) by the path they
-# took: K2's feat, K6's and K6r's feat, dxn-share and dWf products on tensor
-# cores ("tc") or CUDA cores ("fma"); K1 on tensor cores with t tokens per
-# CTA ("mma<t>") or on CUDA cores ("fma")
+# the same launches of K2, K1, K6, K6r and K5 (either variant) by the path
+# they took: K2's feat, K6's and K6r's feat, dxn-share and dWf products on
+# tensor cores ("tc") or CUDA cores ("fma"); K1 on tensor cores with t tokens
+# per CTA ("mma<t>") or on CUDA cores ("fma"); K5 on tensor cores in
+# thread-block clusters ("cluster") or on CUDA cores ("fma")
 PATHS = {"mixer_block/tc": 0, "mixer_block/fma": 0, "mlp_block/mma16": 0,
          "mlp_block/mma32": 0, "mlp_block/mma64": 0, "mlp_block/fma": 0,
          "mixer_block_bwd/tc": 0, "mixer_block_bwd/fma": 0, "mixer_block_bwd_remat/tc": 0,
-         "mixer_block_bwd_remat/fma": 0}
+         "mixer_block_bwd_remat/fma": 0, "mlp_block_bwd/cluster": 0, "mlp_block_bwd/fma": 0,
+         "mlp_block_bwd_z1/cluster": 0, "mlp_block_bwd_z1/fma": 0}
 
 
 def _use_bwd_residuals() -> bool:
@@ -625,6 +627,12 @@ def _check_mlp_args(name, x, stats, w1, b1, w2, z1=None):
         _check("z1", z1, (b, h, w, hid), x.dtype, dev)
 
 
+def _aligned(t):
+    """t, or a copy of it where its storage does not start on 16 bytes (K5
+    and K7/K7b stage tiles with 16-byte copies and read vectors)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def mlp_block(x, stats, w1, b1, w2, b2, return_z1=False):
     """MLP half on folded weights.  x (B,H,W,C) bf16|f32; w1 (C,hid) and w2
     (hid,C) in x's dtype; biases and stats (B,2) f32.  With `return_z1`
@@ -652,8 +660,9 @@ def mlp_block_bwd(x, g, stats, w1, b1, w2, z1=None):
     one dtype; w1 (C,hid) and w2 (hid,C) in x's dtype; b1 and stats (B,2)
     f32; z1 (B,H,W,hid) in x's dtype, K1's stored pre-GELU activations, or
     None (fc1 recomputed).  Returns what `mlp_block_bwd_plain` returns.  The
-    kernel writes one row of weight-gradient partials per block; one torch
-    sum reduces them (no float atomics: two runs give the same bits)."""
+    kernel writes one row of weight-gradient partials and GroupNorm sums per
+    thread-block cluster (cluster path) or per block (FMA path); torch sums
+    reduce them (no float atomics: two runs give the same bits)."""
     if x.device.type == "cpu":
         return mlp_block_bwd_plain(x, g, stats, w1, b1, w2, z1)
     if x.device.type != "cuda":
@@ -664,16 +673,30 @@ def mlp_block_bwd(x, g, stats, w1, b1, w2, z1=None):
     b, h, w, c = x.shape
     hid = w1.shape[1]
     _check("g", g, (b, h, w, c), x.dtype, x.device)
-    chunks = kernels.mlp_bwd_chunks(h * w, c, hid, x.dtype)
-    part = torch.empty((b * chunks, 2 * c * hid + hid + c + 2), dtype=torch.float32,
-                       device=x.device)
+    geo = kernels.mlp_bwd_launch(b, h * w, c, hid, x.dtype, x.device)
+    f32, dev, o = torch.float32, x.device, c * hid
+    cs = geo["cluster"]
+    if cs:
+        x, g, w1, w2 = (_aligned(t) for t in (x, g, w1, w2))
+        z1 = None if z1 is None else _aligned(z1)
+        part = torch.empty((geo["clusters"], geo["row_floats"]), dtype=f32, device=dev)
+    else:
+        part = torch.empty((b * geo["chunks"], 2 * o + hid + c + 2), dtype=f32, device=dev)
     dxn = torch.empty_like(x)
-    kernels.mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, chunks)
-    LAUNCHES["mlp_block_bwd" if z1 is None else "mlp_block_bwd_z1"] += 1
-    tot = part[:, :-2].sum(0)
-    o = c * hid
+    kernels.mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, chunks=geo["chunks"],
+                          cluster=cs, clusters=geo["clusters"], tile=geo["tile"])
+    key = "mlp_block_bwd" if z1 is None else "mlp_block_bwd_z1"
+    LAUNCHES[key] += 1
+    PATHS[f"{key}/{'cluster' if cs else 'fma'}"] += 1
+    if cs:  # one row per cluster: [dW1 | dW2 | db1 | db2 | per-sample sums]
+        tot = part.sum(0)
+        sums = tot[2 * o + hid + c:].view(b, 2)
+    else:
+        tot = part[:, :-2].sum(0)
+        sums = part[:, -2:].view(b, geo["chunks"], 2).sum(1)
+    db2 = tot[2 * o + hid:2 * o + hid + c]
     return (dxn, tot[:o].view(c, hid), tot[2 * o:2 * o + hid], tot[o:2 * o].view(hid, c),
-            tot[2 * o + hid:], part[:, -2:].view(b, chunks, 2).sum(1))
+            db2, sums)
 
 
 def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, residuals, *,

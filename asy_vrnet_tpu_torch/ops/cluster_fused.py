@@ -23,14 +23,18 @@ and are not carried over.
 
 Layout is NHWC (B, H, W, heads * head_dim), contiguous.  The wrappers take
 CPU tensors through the twins and CUDA tensors through the kernels (or
-raise); each counts its kernel launches in LAUNCHES.
+raise); each counts its kernel launches in LAUNCHES, and in PATHS by the
+instantiation it took: "fast" (head width 32, at most 4 proposals: 4
+channels a lane held in registers, the cosines formed at once, register
+sums) or "general" (`kernels.cluster_mix_fast`).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from asy_vrnet_tpu_torch.ops.block import _check, _needs_grad, _round, pallas_supported
+from asy_vrnet_tpu_torch.ops.block import (_aligned, _check, _needs_grad, _round,
+                                           pallas_supported)
 from asy_vrnet_tpu_torch.ops.cluster import (
     _fold_tokens,
     _pool_matrix,
@@ -40,6 +44,8 @@ from asy_vrnet_tpu_torch.ops.cluster import (
 
 # kernel launches per wrapper; plain-version calls are not counted
 LAUNCHES = {"cluster_mix": 0, "cluster_mix_bwd": 0}
+PATHS = {"cluster_mix/fast": 0, "cluster_mix/general": 0, "cluster_mix_bwd/fast": 0,
+         "cluster_mix_bwd/general": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -171,12 +177,15 @@ def cluster_mix_fwd(feat, value, alpha_beta, *, heads, fold_h, fold_w, proposal_
     from asy_vrnet_tpu_torch.ops import kernels
 
     _check_args("cluster_mix", feat, {"feat": feat, "value": value}, alpha_beta, geo)
-    b, h, w, _ = feat.shape
+    b, h, w, c = feat.shape
+    feat, value = _aligned(feat), _aligned(value)
     out = torch.empty_like(feat)
     assign = (torch.empty((b, h, w, heads), dtype=torch.int8, device=feat.device)
               if return_assign else None)
-    kernels.cluster_mix(feat, value, alpha_beta, out, assign, **geo)
+    fast = kernels.cluster_mix_fast(c // heads, proposal_h * proposal_w)
+    kernels.cluster_mix(feat, value, alpha_beta, out, assign, fast=fast, **geo)
     LAUNCHES["cluster_mix"] += 1
+    PATHS["cluster_mix/fast" if fast else "cluster_mix/general"] += 1
     return (out, assign) if return_assign else out
 
 
@@ -197,14 +206,18 @@ def cluster_mix_bwd(feat, value, g, alpha_beta, *, heads, fold_h, fold_w, propos
 
     _check_args("cluster_mix_bwd", feat, {"feat": feat, "value": value, "g": g},
                 alpha_beta, geo)
-    b, h, w, _ = feat.shape
+    b, h, w, c = feat.shape
+    feat, value, g = _aligned(feat), _aligned(value), _aligned(g)
     dx, dv = torch.empty_like(feat), torch.empty_like(feat)
     dab = torch.empty((b * heads * fold_h * fold_w, 2), dtype=torch.float32,
                       device=feat.device)
     assign = (torch.empty((b, h, w, heads), dtype=torch.int8, device=feat.device)
               if return_assign else None)
-    kernels.cluster_mix_bwd(feat, value, g, alpha_beta, dx, dv, dab, assign, **geo)
+    fast = kernels.cluster_mix_fast(c // heads, proposal_h * proposal_w)
+    kernels.cluster_mix_bwd(feat, value, g, alpha_beta, dx, dv, dab, assign, fast=fast,
+                            **geo)
     LAUNCHES["cluster_mix_bwd"] += 1
+    PATHS["cluster_mix_bwd/fast" if fast else "cluster_mix_bwd/general"] += 1
     out = (dx, dv, dab.sum(0))
     return (*out, assign) if return_assign else out
 

@@ -36,7 +36,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("mixer_block", "mlp_block", "mixer_block_bwd", "mlp_block_bwd",
            "cluster_mix", "cluster_mix_bwd", "seg_loss_sums", "seg_loss_dlogits",
            "simota_assign")
-HEADERS = ("common.cuh", "mixer_block.cuh", "cluster_mix.cuh", "seg_loss.cuh")
+HEADERS = ("common.cuh", "mixer_block.cuh", "cluster_mix.cuh", "seg_loss.cuh",
+           "mlp_block_bwd_geometry.h")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 # SimOTA's results hang on exact ties between costs, so its source is built
@@ -54,9 +55,9 @@ _SIGS = {
     "mixer_block": [_P] * 15 + [_I] * 12 + [_P],
     "mlp_block": [_P] * 8 + [_I] * 5 + [_P],
     "mixer_block_bwd": [_P] * 21 + [_I] * 13 + [_P],
-    "mlp_block_bwd": [_P] * 9 + [_I] * 5 + [_P],
-    "cluster_mix": [_P] * 5 + [_I] * 9 + [_P],
-    "cluster_mix_bwd": [_P] * 8 + [_I] * 9 + [_P],
+    "mlp_block_bwd": [_P] * 9 + [_I] * 8 + [_P],
+    "cluster_mix": [_P] * 5 + [_I] * 10 + [_P],
+    "cluster_mix_bwd": [_P] * 8 + [_I] * 10 + [_P],
     "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
     "seg_loss_dlogits": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
     "simota_assign": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
@@ -70,7 +71,11 @@ _EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 8, _I),
                              for t in ("bf16", "f32")},
                           "mixer_block_groups": ([_I] * 9, _I),
                           "mixer_block_info": ([_I] * 9 + [_P], _I)},
-          "mlp_block": {"mlp_block_info": ([_I] * 2 + [_P], _I)}}
+          "mlp_block": {"mlp_block_info": ([_I] * 2 + [_P], _I)},
+          "mlp_block_bwd": {"mlp_block_bwd_info": ([_I] * 10 + [_P], _I),
+                            "mlp_block_bwd_geometry": ([_I] * 4 + [_P], _I)},
+          "cluster_mix": {"cluster_mix_info": ([_I] * 10 + [_P], _I)},
+          "cluster_mix_bwd": {"cluster_mix_bwd_info": ([_I] * 10 + [_P], _I)}}
 
 
 def _nvcc() -> str:
@@ -152,14 +157,22 @@ def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
 
 
+@functools.lru_cache(maxsize=None)
+def _entry(name: str, entry: str | None, bf16: bool):
+    """(library, C function) of `<entry>_<bf16|f32>` (built at first use)."""
+    lib = load(name)
+    return lib, getattr(lib, f"{entry or name}_{'bf16' if bf16 else 'f32'}")
+
+
 def _call(name: str, x: torch.Tensor, *args, entry: str | None = None) -> None:
     """Launch `<entry>_<bf16|f32>` (entry defaults to the source's name) of
     library `name` on x's device and current stream; raises on an error."""
-    lib = load(name)
-    fn = getattr(lib, f"{entry or name}_{'bf16' if x.dtype == torch.bfloat16 else 'f32'}")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(*args, stream)
+    lib, fn = _entry(name, entry, x.dtype == torch.bfloat16)
+    if x.device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(x.device):
+            err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
     if err:
         msg = lib.asy_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry or name} kernel launch failed: {msg} (code {err})")
@@ -266,11 +279,13 @@ def mixer_block_ablate(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out, part, 
           stop, int(nf), _ptr(occupancy), entry="mixer_block_ablate")
 
 
-# tokens per block of the MLP backward.  Tensor-core path (bf16, C % 16 == 0,
-# C <= 160, hid % 32 == 0, H*W % 128 == 0): 128.  Otherwise the FMA path: its
-# chunk's f32 dxn (tokens x C) stays in shared memory, at most this many
-# floats.  Mirrors `mma_path` and `launch` in csrc/mlp_block_bwd.cu.
-_MLP_BWD_MMA_TOKENS = 128
+# The MLP backward (K5).  Its cluster path (bf16, C % 16 == 0 up to 160,
+# hid % 32 == 0, H*W % 64 == 0, where a rank fits) cuts the tokens into
+# tiles of 64 or 128 and the hidden width into slices of 32 over the CTAs of
+# a thread-block cluster; csrc/mlp_block_bwd_geometry.h decides both.
+# Otherwise the FMA path: one block per chunk of a sample, its f32 dxn
+# (tokens x C) in shared memory, at most this many floats.  Mirrors `launch`
+# in csrc/mlp_block_bwd.cu.
 _MLP_BWD_CHUNK_FLOATS = 16384
 _MLP_BWD_SUB = 32
 # tokens per thread of the mixer backward's epilogue (kEpiRows in the source)
@@ -278,13 +293,36 @@ _MIXER_BWD_EPI_ROWS = 8
 
 
 def mlp_bwd_chunks(hw: int, c: int, hid: int, dtype: torch.dtype) -> int:
-    """Blocks per sample of the MLP backward (each takes ceil(hw/chunks)
-    tokens of one sample)."""
-    if (dtype == torch.bfloat16 and c % 16 == 0 and c <= 160 and hid % 32 == 0
-            and hw % _MLP_BWD_MMA_TOKENS == 0):
-        return hw // _MLP_BWD_MMA_TOKENS
+    """Blocks per sample of the MLP backward's FMA path (each takes
+    ceil(hw/chunks) tokens of one sample)."""
     tt = max(_MLP_BWD_SUB, (_MLP_BWD_CHUNK_FLOATS // c) // _MLP_BWD_SUB * _MLP_BWD_SUB)
     return -(-hw // tt)
+
+
+def mlp_bwd_launch(b: int, hw: int, c: int, hid: int, dtype: torch.dtype,
+                   device: torch.device) -> dict:
+    """How K5 launches on this card.  Cluster path (bf16 at the shapes
+    csrc/mlp_block_bwd_geometry.h takes, which also picks the launch):
+    `cluster` CTAs a cluster, `clusters` clusters, `tile` tokens a tile and
+    `row_floats` floats of partials a cluster writes, `chunks` 0.  FMA path:
+    `chunks` blocks per sample, `cluster` 0.  Cached by shape: the train
+    step asks 27 times."""
+    return _mlp_bwd_launch(b, hw, c, hid, dtype, device)
+
+
+@functools.lru_cache(maxsize=None)
+def _mlp_bwd_launch(b, hw, c, hid, dtype, device):
+    if dtype == torch.bfloat16:
+        out = torch.zeros(3, dtype=torch.int32)
+        with torch.cuda.device(device):
+            err = load("mlp_block_bwd").mlp_block_bwd_geometry(b, hw, c, hid, out.data_ptr())
+        if err:
+            raise RuntimeError(f"mlp_block_bwd_geometry: code {err}")
+        cs, ncl, tile = out.tolist()
+        if cs:
+            return dict(chunks=0, cluster=cs, clusters=ncl, tile=tile,
+                        row_floats=2 * c * hid + hid + c + 2 * b)
+    return dict(chunks=mlp_bwd_chunks(hw, c, hid, dtype), cluster=0, clusters=0, tile=0)
 
 
 def mixer_bwd_groups(c: int, inner: int, heads: int, regions: int, proposal_h: int,
@@ -337,13 +375,41 @@ def mixer_bwd_tiles(hw: int, c: int) -> int:
     return -(-hw // mixer_bwd_epi_tile(c))
 
 
-def mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, chunks) -> None:
+def mlp_block_bwd(x, g, stats, w1, b1, w2, z1, dxn, part, *, chunks, cluster, clusters,
+                  tile) -> None:
     """Launch the MLP-half backward kernel (reading z1 unless it is None);
-    tensors are checked by the caller.  `part` is (B * chunks, 2*C*hid + hid
-    + C + 2) f32."""
+    tensors are checked by the caller (16-byte aligned on the cluster
+    path).  Cluster path (`cluster` > 0, `chunks` 0, `tile` tokens a tile):
+    `part` (clusters, 2*C*hid + hid + C + 2*B) f32, one row per cluster
+    ending in the per-sample GroupNorm sums.  FMA path (`cluster` 0):
+    `part` (B * chunks, 2*C*hid + hid + C + 2).  The kernel refuses a
+    `cluster` that names the path its shape does not take."""
     b, h, w, c = x.shape
     _call("mlp_block_bwd", x, _ptr(x), _ptr(g), _ptr(stats), _ptr(w1), _ptr(b1),
-          _ptr(w2), _ptr(z1), _ptr(dxn), _ptr(part), b, h * w, c, w1.shape[1], chunks)
+          _ptr(w2), _ptr(z1), _ptr(dxn), _ptr(part), b, h * w, c, w1.shape[1], chunks, cluster,
+          clusters, tile)
+
+
+def mlp_block_bwd_info(dtype, b, hw, c, hid, z1, device) -> dict:
+    """K5 as a launch at (B, H*W, C, hid) takes it (`z1`: its z1 variant):
+    its CTAs, cluster size, partial-row bytes, dynamic shared memory
+    (bytes), CTAs per SM, registers, threads per CTA and the clusters the
+    card holds at once (0 on the FMA path)."""
+    geo = mlp_bwd_launch(b, hw, c, hid, dtype, device)
+    out = torch.zeros(5, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = load("mlp_block_bwd").mlp_block_bwd_info(
+            torch.empty((), dtype=dtype).element_size(), b, hw, c, hid, geo["chunks"],
+            geo["cluster"], geo["clusters"], geo["tile"], int(z1), out.data_ptr())
+    if err:
+        raise RuntimeError(f"mlp_block_bwd_info: code {err}")
+    if geo["cluster"]:
+        ctas, rows = geo["clusters"] * geo["cluster"], geo["clusters"] * geo["row_floats"]
+    else:
+        ctas, rows = b * geo["chunks"], b * geo["chunks"] * (2 * c * hid + hid + c + 2)
+    return dict(ctas=ctas, cluster=geo["cluster"], tile=geo["tile"], part_bytes=4 * rows,
+                **dict(zip(("smem_bytes", "ctas_per_sm", "registers", "threads",
+                            "active_clusters"), out.tolist())))
 
 
 def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, pack, dxn, scratch,
@@ -420,24 +486,60 @@ def mlp_block(x, stats, w1, b1, w2, b2, out, z1, tokens) -> None:
           _ptr(b2), _ptr(out), _ptr(z1), b, h * w, c, w1.shape[1], tokens)
 
 
+# the fast instantiation of K7/K7b (csrc/cluster_mix.cuh::fast_path): the
+# head width it holds in registers (4 channels a lane, 8 lanes a token) and
+# the most proposals whose cosines it forms at once
+CLUSTER_FAST_D, CLUSTER_FAST_M = 32, 4
+
+
+def cluster_mix_fast(head_dim: int, proposals: int) -> bool:
+    """Whether K7 and K7b take their fast instantiation at this head width
+    and proposal count, else the general one (any D, any M).  Both kernels
+    refuse a `fast` that differs from their own reading."""
+    return head_dim == CLUSTER_FAST_D and proposals <= CLUSTER_FAST_M
+
+
 def cluster_mix(feat, value, alpha_beta, out, assign, *, heads, fold_h, fold_w,
-                proposal_h, proposal_w) -> None:
+                proposal_h, proposal_w, fast) -> None:
     """Launch the cluster mix forward (K7); tensors are checked by the
-    caller.  `assign` (B, H, W, heads) int8 may be None."""
+    caller (16-byte aligned on the fast path).  `assign` (B, H, W, heads)
+    int8 may be None."""
     b, h, w, c = feat.shape
     _call("cluster_mix", feat, _ptr(feat), _ptr(value), _ptr(alpha_beta), _ptr(out),
-          _ptr(assign), b, h, w, c, heads, fold_h, fold_w, proposal_h, proposal_w)
+          _ptr(assign), b, h, w, c, heads, fold_h, fold_w, proposal_h, proposal_w, int(fast))
 
 
 def cluster_mix_bwd(feat, value, g, alpha_beta, dx, dv, dab, assign, *, heads, fold_h,
-                    fold_w, proposal_h, proposal_w) -> None:
+                    fold_w, proposal_h, proposal_w, fast) -> None:
     """Launch the cluster mix backward (K7b); tensors are checked by the
-    caller.  `dab` is (B * heads * fold_h * fold_w, 2) f32, one row of [d
-    alpha, d beta] partials per block; `assign` may be None."""
+    caller (16-byte aligned on the fast path).  `dab` is (B * heads *
+    fold_h * fold_w, 2) f32, one row of [d alpha, d beta] partials per
+    block; `assign` may be None."""
     b, h, w, c = feat.shape
     _call("cluster_mix_bwd", feat, _ptr(feat), _ptr(value), _ptr(g), _ptr(alpha_beta),
           _ptr(dx), _ptr(dv), _ptr(dab), _ptr(assign), b, h, w, c, heads, fold_h, fold_w,
-          proposal_h, proposal_w)
+          proposal_h, proposal_w, int(fast))
+
+
+def cluster_mix_info(dtype, shape, *, heads, fold_h, fold_w, proposal_h, proposal_w,
+                     backward, device) -> dict:
+    """K7 (or K7b with `backward`) as a launch on a (B, H, W, C) feat takes
+    it: its CTAs, dynamic shared memory (bytes), CTAs per SM, registers,
+    threads per CTA, whether it takes the fast instantiation and whether
+    its tiles are staged in shared memory."""
+    name = "cluster_mix_bwd" if backward else "cluster_mix"
+    b, h, w, c = shape
+    out = torch.zeros(6, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = getattr(load(name), f"{name}_info")(
+            torch.empty((), dtype=dtype).element_size(), b, h, w, c, heads, fold_h, fold_w,
+            proposal_h, proposal_w, out.data_ptr())
+    if err:
+        raise RuntimeError(f"{name}_info: code {err}")
+    vals = out.tolist()
+    return dict(ctas=b * heads * fold_h * fold_w, **dict(zip(
+        ("smem_bytes", "ctas_per_sm", "registers", "threads"), vals[:4])),
+        fast=bool(vals[4]), staged=bool(vals[5]))
 
 
 def seg_loss_sums(logits, target, weights, part, alpha, gamma, threshold) -> None:

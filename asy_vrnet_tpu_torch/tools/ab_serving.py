@@ -28,8 +28,16 @@ prints one line per record, `AB {json}`, with the tag.
   profiler trace, CUDA-event ms (20 launches), host microseconds per call;
   the head groups G and CTAs, and where the checkout reports them
   (`kernels.mixer_block_bwd_info`, `block.PATHS`) the CTAs per SM,
-  registers, shared memory and the path each launch took; then each
-  kernel's per-step sums (calls per train step x ms).
+  registers, shared memory and the path each launch took.  Then K5 and
+  its z1 variant at the same shapes and batch, and K7 and K7b at the four
+  stochastic-depth shapes (`CLUSTER_SHAPES`, batch 16): the main kernel's
+  and the wrapper's torch reductions' device ms by trace, events, host
+  microseconds, and where the checkout reports them
+  (`kernels.mlp_block_bwd_info`, `kernels.cluster_mix_info`, the
+  `PATHS` of `ops/block.py` and `ops/cluster_fused.py`) the CTAs, cluster
+  size, partial-row bytes, CTAs per SM, registers, shared memory, threads
+  and path.  Last, each kernel's per-step sums (calls per train step x
+  ms).  `--only k6,k5,k7` picks families (default: all).
 - forward: the r05 weights (`--weights`, by default the checkout's) in
   nano coc_small at 512^2, bf16; CUDA-event ms per forward at batch 8 and
   32, 5 repeats of 10 forwards.
@@ -60,6 +68,12 @@ SHAPES = [("stage0", 8, 128, 128, 16, 4, 32, 8, 128, 4),
           ("p5", 8, 16, 16, 128, 4, 24, 2, 512, 1),
           ("p4", 8, 32, 32, 160, 4, 24, 2, 640, 1),
           ("p3", 8, 64, 64, 64, 4, 24, 2, 256, 1)]
+# the stand-alone cluster mix at the stochastic-depth train step: (name, B,
+# H, W, inner width I, heads, fold, calls per step)
+CLUSTER_SHAPES = [("stage0", 16, 128, 128, 128, 4, 8, 2),
+                  ("stage1", 16, 64, 64, 128, 4, 4, 4),
+                  ("stage2", 16, 32, 32, 256, 8, 2, 12),
+                  ("stage3", 16, 16, 16, 256, 8, 1, 4)]
 SEEDS = (0, 11, 14, 15, 21)
 R05 = os.path.join("model_data", "convergence_tpu_r05", "logs_512c", "best_epoch_weights.npz")
 
@@ -169,15 +183,19 @@ def timing(dev, emit):
         emit(rec)
 
 
-def time_bwd(dev, emit, batch=16):
+def time_bwd(dev, emit, batch=16, only=("k6", "k5", "k7")):
     from asy_vrnet_tpu_torch.ops import kernels
 
     paths = getattr(block, "PATHS", {})
     step = {}  # per kernel: the sums over shapes of calls x ms
+    if "k5" in only:
+        _time_mlp_bwd(dev, emit, batch, step)
+    if "k7" in only:
+        _time_cluster(dev, emit, batch, step)
     # the head groups depend on the element size since the tensor-core tiles
     by_dtype = ({"dtype": torch.bfloat16}
                 if "dtype" in inspect.signature(kernels.mixer_bwd_groups).parameters else {})
-    for (name, _, h, w, c, heads, d, fold, hid, calls) in SHAPES:
+    for (name, _, h, w, c, heads, d, fold, hid, calls) in SHAPES if "k6" in only else ():
         n, mixer, _ = _weights(c, heads * d, hid, 0)
         x = n(batch, h, w, c).to(dev, torch.bfloat16)
         gy = (n(batch, h, w, c) * 0.5).to(dev, torch.bfloat16)
@@ -219,6 +237,88 @@ def time_bwd(dev, emit, batch=16):
         emit({"mode": "time-bwd", "kernel": k, "shape": "per step", "b": batch, **tot})
 
 
+def _path(fn, paths):
+    """The PATHS keys one call of fn moves (None where the checkout has no
+    PATHS for it)."""
+    before = dict(paths)
+    fn()
+    torch.cuda.synchronize()
+    return {p: v - before.get(p, 0) for p, v in paths.items() if v != before.get(p, 0)} or None
+
+
+def _record(fn, main):
+    """Trace, events and host time of one wrapper: device ms per launch of
+    the kernels named `main` and of everything else the call launched (the
+    wrapper's torch reductions), events ms and host us a call."""
+    rows = _trace_rows(fn)
+    launches = sum(n for nm, (_, n) in rows.items() if main in nm)
+    other = sum(ms for nm, (ms, _) in rows.items() if main not in nm)
+    return dict(main_device_ms=_per_launch(rows, main),
+                torch_device_ms=other / max(1e-9, launches),
+                events_ms=cuda_ms(fn, 20), host_us=_host_us(fn, calls=50))
+
+
+def _add_step(step, k, rec, calls):
+    tot = step.setdefault(k, {})
+    for f in ("main_device_ms", "torch_device_ms", "events_ms"):
+        tot[f] = tot.get(f, 0.0) + calls * (rec[f] or 0.0)
+    if rec.get("part_bytes") is not None:
+        tot["part_bytes"] = tot.get("part_bytes", 0) + calls * rec["part_bytes"]
+
+
+def _time_mlp_bwd(dev, emit, batch, step):
+    """K5 and K5 with z1 at the 7 block shapes."""
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    paths = getattr(block, "PATHS", {})
+    for (name, _, h, w, c, heads, d, fold, hid, calls) in SHAPES:
+        n, _, mlp = _weights(c, heads * d, hid, 0)
+        x = n(batch, h, w, c).to(dev, torch.bfloat16)
+        gy = (n(batch, h, w, c) * 0.5).to(dev, torch.bfloat16)
+        st = block.gn1_stats(x)
+        lw = _cast(mlp, torch.bfloat16, dev)
+        w1, b1, w2, _ = lw
+        _, z1 = block.mlp_block(x, st, *lw, return_z1=True)
+        for k, zz in (("k5", None), ("k5_z1", z1)):
+            def fn(zz=zz):
+                return block.mlp_block_bwd(x, gy, st, w1, b1, w2, zz)
+
+            rec = {"mode": "time-bwd", "kernel": k, "shape": name, "b": batch, "calls": calls,
+                   "path": _path(fn, paths)}
+            if hasattr(kernels, "mlp_block_bwd_info"):
+                rec.update(kernels.mlp_block_bwd_info(torch.bfloat16, batch, h * w, c, hid,
+                                                      zz is not None, dev))
+            rec.update(_record(fn, "mlp_block_bwd"))
+            emit(rec)
+            _add_step(step, k, rec, calls)
+
+
+def _time_cluster(dev, emit, batch, step):
+    """K7 and K7b at the four stochastic-depth shapes."""
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.ops import kernels
+
+    paths = getattr(cf, "PATHS", {})
+    g = torch.Generator().manual_seed(4)
+    ab = torch.tensor([1.5, 0.2], device=dev)
+    for (name, _, h, w, inner, heads, fold, calls) in CLUSTER_SHAPES:
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        feat, value, gy = (torch.randn(batch, h, w, inner, generator=g).mul(sc).to(
+            dev, torch.bfloat16) for sc in (1.0, 1.0, 0.5))
+        for k, fn, main in (
+                ("k7", lambda: cf.cluster_mix_fwd(feat, value, ab, **kw), "cluster_mix_kernel"),
+                ("k7b", lambda: cf.cluster_mix_bwd(feat, value, gy, ab, **kw),
+                 "cluster_mix_bwd_kernel")):
+            rec = {"mode": "time-bwd", "kernel": k, "shape": name, "b": batch, "calls": calls,
+                   "path": _path(fn, paths)}
+            if hasattr(kernels, "cluster_mix_info"):
+                rec.update(kernels.cluster_mix_info(torch.bfloat16, tuple(feat.shape),
+                                                    backward=k == "k7b", device=dev, **kw))
+            rec.update(_record(fn, main))
+            emit(rec)
+            _add_step(step, k, rec, calls)
+
+
 def forward(dev, emit, weights=R05):
     from asy_vrnet_tpu_torch.config import ModelConfig
     from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
@@ -241,6 +341,8 @@ def main(argv=None):
     ap.add_argument("mode", choices=("check", "time", "time-bwd", "forward"))
     ap.add_argument("--tag", default=os.path.basename(os.getcwd()))
     ap.add_argument("--weights", default=R05, help="forward: the r05 weights (.npz)")
+    ap.add_argument("--only", default="k6,k5,k7",
+                    help="time-bwd: the kernel families to time (k6, k5, k7)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_serving measures the card: no CUDA device")
@@ -253,8 +355,10 @@ def main(argv=None):
     dev = torch.device("cuda")
     if args.mode == "forward":
         forward(dev, emit, args.weights)
+    elif args.mode == "time-bwd":
+        time_bwd(dev, emit, only=tuple(args.only.split(",")))
     else:
-        {"check": check, "time": timing, "time-bwd": time_bwd}[args.mode](dev, emit)
+        {"check": check, "time": timing}[args.mode](dev, emit)
 
 
 if __name__ == "__main__":

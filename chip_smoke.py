@@ -38,23 +38,28 @@ Phases (each raises on failure; nothing is caught):
      twin's, the MLP-half backward kernel (K5) against its twin, and the
      mixer-half backward kernel (K6) against its twin with both fed the
      kernel's pack; two runs of each give equal bits; K6's products on
-     tensor cores in bf16, on CUDA cores in f32 (`block.PATHS`); times and
-     bounds;
+     tensor cores in bf16, on CUDA cores in f32, K5 on its cluster path in
+     bf16 and its FMA path in f32 (`block.PATHS`); times and bounds, and a
+     `[geometry mlp_block_bwd ...]` line per shape (CTAs, cluster size,
+     partial-row bytes, CTAs per SM, registers, shared memory, clusters the
+     card holds at once);
  7b. kernels of the memory settings, at the same shapes, batch 16, f32 and
      bf16: K6r (the full-remat mixer backward, ASY_MIXER_BWD_RESIDUALS=0)
      against its twin fed K6r's own assignment, which must equal the one K2
      stored in its pack bit for bit, and against K6 fed that pack (the same
      function); K1 with z1 (ASY_MLP_BWD_RESIDUALS=1: the same output bits as
      K1, z1 against the twin's) and K5 reading it against its twin fed the
-     same z1; two runs of each give equal bits; K6r's path as K6's; times
-     and bounds;
+     same z1; two runs of each give equal bits; K6r's path as K6's, K5 z1's
+     as K5's; times, bounds and K5 z1's `[geometry ...]` lines;
   8. kernels, stand-alone cluster mix: K7 (cluster_mix) and K7b
      (cluster_mix_bwd) against their twins at the four shapes the
      stochastic-depth step gives them, batch 16, f32 and bf16:
      (16,128,128,128) fold 8 heads 4, (16,64,64,128) fold 4 heads 4,
      (16,32,32,256) fold 2 heads 8, (16,16,16,256) fold 1 heads 8; K7's and
      K7b's assignment outputs equal; two runs of each give equal bits;
-     times, twin times and bounds;
+     both on their fast instantiation (`cluster_fused.PATHS`); times, twin
+     times, bounds and a `[geometry ...]` line per shape for each (CTAs,
+     CTAs per SM, registers, shared memory, tiles staged);
   9. train path, fused blocks: r05 weights, `create_train_state`, 5 steps
      on seeded `make_batch` batches at 512^2, batch 16, bf16, fused
      ClusterBlocks (`use_pallas_cluster=True`, the JAX package's default),
@@ -62,7 +67,9 @@ Phases (each raises on failure; nothing is caught):
      read after it (mixer_block, mlp_block, mixer_block_bwd, mlp_block_bwd 27
      each, cluster_mix and cluster_mix_bwd 0, seg_loss_sums 1,
      seg_loss_dlogits 1, simota_assign >= 1; every K6 and K6r launch of
-     every bf16 train path on tensor cores); losses finite, num_fg > 0,
+     every bf16 train path on tensor cores, every K5 launch (either
+     variant) on its cluster path and every K7 and K7b launch on its fast
+     instantiation); losses finite, num_fg > 0,
      parameters, EMA and BN running stats moved; the same first step through
      the plain twins from the same start;
  10. the module-path train step (`use_pallas_cluster=False`, every block
@@ -501,6 +508,7 @@ def check_cluster_mix(dev):
     import torch
 
     from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.ops import kernels
     from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
 
     stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "plain_ms": 0.0,
@@ -514,6 +522,7 @@ def check_cluster_mix(dev):
         for dt in (torch.float32, torch.bfloat16):
             tag = f"{name} {str(dt)[6:]}"
             feat, value, gy = (t.to(dev, dt) for t in f32s)
+            on_fast = (cf.PATHS["cluster_mix/fast"], cf.PATHS["cluster_mix_bwd/fast"])
             out, asg = cf.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
             again = cf.cluster_mix_fwd(feat, value, ab, **kw)
             torch.cuda.synchronize()
@@ -536,6 +545,8 @@ def check_cluster_mix(dev):
             torch.cuda.synchronize()
             check(all(torch.equal(a, r) for a, r in zip(got[:3], again)), f"K7b bits {tag}")
             check(torch.equal(got[3], asg), f"K7b's assignment is K7's {tag}")
+            check((cf.PATHS["cluster_mix/fast"], cf.PATHS["cluster_mix_bwd/fast"])
+                  == (on_fast[0] + 2, on_fast[1] + 2), f"K7, K7b fast path {tag}")
             want = cf.cluster_mix_bwd_plain(feat, value, gy, ab, assign=got[3], **kw)
             errs = []
             for what, a, r in zip(("dfeat", "dvalue", "dalpha_dbeta"), got[:3], want):
@@ -559,6 +570,8 @@ def check_cluster_mix(dev):
                 stats["cluster_mix_bwd"]["max_abs_err"] = max(
                     stats["cluster_mix_bwd"]["max_abs_err"], *errs[:2])
         for kname, backward in (("cluster_mix", False), ("cluster_mix_bwd", True)):
+            log_geometry(kname, name, kernels.cluster_mix_info(
+                torch.bfloat16, (b, h, w, inner), backward=backward, device=dev, **kw))
             if backward:
                 fk = lambda: cf.cluster_mix_bwd(feat, value, gy, ab, **kw)          # noqa: E731
                 fp = lambda: cf.cluster_mix_bwd_plain(feat, value, gy, ab, **kw)    # noqa: E731
@@ -581,6 +594,11 @@ def check_cluster_mix(dev):
     for st in stats.values():
         st["bound_by"] = "operations" if st.pop("flops_ms") >= st.pop("bytes_ms") else "bytes"
     return stats, agreement
+
+
+def log_geometry(kname, name, info):
+    """One `[geometry ...]` line: a kernel's launch at one shape."""
+    log(f"[geometry {kname} {name}] " + ", ".join(f"{k} {v}" for k, v in info.items()))
 
 
 def close_bwd(kname, name, got, want, dt, dxn_ref):
@@ -619,7 +637,7 @@ def check_remat_z1(dev):
     twin are fed the same z1 and held as K5.  -> {kernel: stats}."""
     import torch
 
-    from asy_vrnet_tpu_torch.ops import block
+    from asy_vrnet_tpu_torch.ops import block, kernels
     from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
 
     names = ("dxn", "dwf", "dbf", "dwv", "dbv", "dw2", "db2", "dab", "sums")
@@ -689,10 +707,13 @@ def check_remat_z1(dev):
             check(zerr <= (1e-5 * max(1.0, zs) if dt == torch.float32 else 2 * bf16_ulp(zs)),
                   f"K1 z1 {tag}: max|diff| {zerr:.3e} max|z1| {zs:.3e}")
             largs = (x, gy, st, w1, b1, w2m, z1)
+            zpath = f"mlp_block_bwd_z1/{'cluster' if dt == torch.bfloat16 else 'fma'}"
+            on_path = block.PATHS[zpath]
             lgot = block.mlp_block_bwd(*largs)
             again = block.mlp_block_bwd(*largs)
             torch.cuda.synchronize()
             check(all(torch.equal(a, r) for a, r in zip(lgot, again)), f"K5 z1 bits {tag}")
+            check(block.PATHS[zpath] == on_path + 2, f"K5 z1 path {tag}")
             lwant = block.mlp_block_bwd_plain(*largs)
             lerr = [close_bwd("mlp_block_bwd_z1", n, a, r, dt, lwant[0]) for n, a, r in zip(
                 ("dxn", "dw1", "db1", "dw2", "db2", "sums"), lgot, lwant)]
@@ -718,6 +739,8 @@ def check_remat_z1(dev):
                                  lambda: block.mlp_block_bwd_plain(*largs),
                                  mlp_bwd_bounds(b, h, w, c, hid, z1=True)),
         }
+        log_geometry("mlp_block_bwd_z1", name, kernels.mlp_block_bwd_info(
+            torch.bfloat16, b, h * w, c, hid, True, dev))
         for kname, (fk, fp, (flops, byts)) in fns.items():
             ms, pms = cuda_ms(fk, 10), cuda_ms(fp, 2, warmup=1)
             bms, by = bound_ms(flops, byts)
@@ -1371,10 +1394,13 @@ def main() -> int:
                     for n, a, r in zip(names, got, want)]
             w1, b1, w2m, _ = lw
             largs = (x, gy, st, w1, b1, w2m)
+            lpath = f"mlp_block_bwd/{'cluster' if dt == torch.bfloat16 else 'fma'}"
+            on_path = block.PATHS[lpath]
             got = block.mlp_block_bwd(*largs)
             again = block.mlp_block_bwd(*largs)
             torch.cuda.synchronize()
             check(all(torch.equal(a, r) for a, r in zip(got, again)), f"K5 bits {tag}")
+            check(block.PATHS[lpath] == on_path + 2, f"K5 path {tag}")
             want = block.mlp_block_bwd_plain(*largs)
             names = ("dxn", "dw1", "db1", "dw2", "db2", "sums")
             lerr = [close_bwd("mlp_block_bwd", n, a, r, dt, want[0])
@@ -1400,6 +1426,8 @@ def main() -> int:
                 fk = lambda: block.mlp_block_bwd(*largs)                  # noqa: E731
                 fp = lambda: block.mlp_block_bwd_plain(*largs)            # noqa: E731
                 flops, byts = mlp_bwd_bounds(TRAIN_BATCH, h, w, c, hid)
+                log_geometry(kname, name, kernels.mlp_block_bwd_info(
+                    torch.bfloat16, TRAIN_BATCH, h * w, c, hid, False, dev))
             ms, pms = cuda_ms(fk, 10), cuda_ms(fp, 2, warmup=1)
             bms, by = bound_ms(flops, byts)
             log(f"[time {kname} {name} bs={TRAIN_BATCH}] kernel {ms:.4f} ms, plain {pms:.4f} ms, "
@@ -1477,19 +1505,29 @@ def main() -> int:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()
         reset_launches(*counters)
-        for k in block.PATHS:
-            block.PATHS[k] = 0
+        for paths in (block.PATHS, cf.PATHS):
+            for k in paths:
+                paths[k] = 0
         state, first = step(state, batches[0])
         torch.cuda.synchronize()
         launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
         log(f"[train {tag}] launches in one step {launches}; backward paths "
-            f"{ {k: v for k, v in block.PATHS.items() if k.startswith('mixer_block_bwd')} }")
+            f"{ {k: v for k, v in block.PATHS.items() if '_bwd' in k} }; cluster mix paths "
+            f"{cf.PATHS}")
         check({k: launches[k] for k in want} == want and launches["simota_assign"] >= 1,
               launches)
-        # bf16: every K6 and K6r launch ran its products on tensor cores
-        for key in ("mixer_block_bwd", "mixer_block_bwd_remat"):
-            check(block.PATHS[f"{key}/tc"] == launches[key] and not block.PATHS[f"{key}/fma"],
-                  f"{tag}: {key} on tensor cores in every launch")
+        # bf16: every K6 and K6r launch ran its products on tensor cores, every
+        # K5 launch took its cluster path, every K7 and K7b launch (all at head
+        # width 32 with 2x2 proposals) its fast instantiation
+        for paths, key, new, old in (
+                (block.PATHS, "mixer_block_bwd", "tc", "fma"),
+                (block.PATHS, "mixer_block_bwd_remat", "tc", "fma"),
+                (block.PATHS, "mlp_block_bwd", "cluster", "fma"),
+                (block.PATHS, "mlp_block_bwd_z1", "cluster", "fma"),
+                (cf.PATHS, "cluster_mix", "fast", "general"),
+                (cf.PATHS, "cluster_mix_bwd", "fast", "general")):
+            check(paths[f"{key}/{new}"] == launches[key] and not paths[f"{key}/{old}"],
+                  f"{tag}: {key} on its {new} path in every launch")
         history = [{k: float(v) for k, v in first.items()}]
         for bt in batches[1:steps]:
             state, m = step(state, bt)

@@ -585,12 +585,54 @@ def test_mlp_bwd_kernel_matches_plain(dev, shape, dt):
     st = block.gn1_stats(x)
     w1, b1, w2, _ = _cast(mlp, dt, dev)
     before = block.LAUNCHES["mlp_block_bwd"]
+    cluster = kernels.mlp_bwd_launch(b, h * w, c, hid, dt, dev)["cluster"] > 0
+    assert cluster is (dt == torch.bfloat16 and not shape[0].startswith("tiny"))
+    path = f"mlp_block_bwd/{'cluster' if cluster else 'fma'}"
+    on_path = block.PATHS[path]
     got = block.mlp_block_bwd(x, g, st, w1, b1, w2)
     again = block.mlp_block_bwd(x, g, st, w1, b1, w2)
     torch.cuda.synchronize()
     assert block.LAUNCHES["mlp_block_bwd"] == before + 2
+    assert block.PATHS[path] == on_path + 2
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     want = block.mlp_block_bwd_plain(x, g, st, w1, b1, w2)
+    for name, a, w_ in zip(("dxn", "dw1", "db1", "dw2", "db2", "sums"), got, want):
+        _bwd_close(name, a, w_, dt, want[0])
+
+
+# (name, B, H, W, C, hid): K5's cluster path at hidden widths whose 32-unit
+# slices do not divide by the cluster (csrc/mlp_block_bwd_geometry.h: 11 or 13
+# slices over 8 ranks; p4's 20 over 8 at batch 1, 64-token tiles), and one
+# 64-token tile
+UNEVEN_MLP = [("c128_h352", 2, 16, 16, 128, 352), ("c128_h416", 2, 16, 16, 128, 416),
+              ("c160_h640", 1, 32, 32, 160, 640), ("one_tile", 1, 8, 8, 16, 32)]
+
+
+@pytest.mark.parametrize("shape", UNEVEN_MLP, ids=[s[0] for s in UNEVEN_MLP])
+@pytest.mark.parametrize("z1", [False, True], ids=["remat", "z1"])
+def test_mlp_bwd_uneven_hidden_split(dev, shape, z1):
+    """K5 in bf16 on its cluster path where the ranks own different numbers
+    of hidden slices: against its twin, two runs equal bits."""
+    _, b, h, w, c, hid = shape
+    n, _, mlp = _weights(c, 64, hid, 9)
+    dt = torch.bfloat16
+    x = n(b, h, w, c).to(dev, dt)
+    g = (n(b, h, w, c) * 0.5).to(dev, dt)
+    st = block.gn1_stats(x)
+    lw = _cast(mlp, dt, dev)
+    w1, b1, w2, _ = lw
+    geo = kernels.mlp_bwd_launch(b, h * w, c, hid, dt, dev)
+    uneven = (hid // 32) % geo["cluster"] != 0
+    assert geo["cluster"] >= 1 and (uneven or shape[0] == "one_tile"), geo
+    zz = block.mlp_block(x, st, *lw, return_z1=True)[1] if z1 else None
+    key = "mlp_block_bwd_z1" if z1 else "mlp_block_bwd"
+    on_path = block.PATHS[f"{key}/cluster"]
+    got = block.mlp_block_bwd(x, g, st, w1, b1, w2, zz)
+    again = block.mlp_block_bwd(x, g, st, w1, b1, w2, zz)
+    torch.cuda.synchronize()
+    assert block.PATHS[f"{key}/cluster"] == on_path + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = block.mlp_block_bwd_plain(x, g, st, w1, b1, w2, zz)
     for name, a, w_ in zip(("dxn", "dw1", "db1", "dw2", "db2", "sums"), got, want):
         _bwd_close(name, a, w_, dt, want[0])
 
@@ -799,7 +841,10 @@ def test_fused_train_step_on_card_matches_cpu(dev):
 
 # (name, B, H, W, I, heads, fold, proposals): the four stochastic-depth
 # shapes of nano coc_small at 512^2 (a smaller batch), a neck-like one
-# (head_dim 24, 1024-token regions) and coc_tiny2's stage 0 (4x4 proposals)
+# (head_dim 24, 1024-token regions), coc_tiny2's stage 0 (4x4 proposals),
+# its 7x7 proposals (M = 49, overlapping windows, 196-token regions) and
+# head_dim 32 with 4x4 proposals: all but the first four take the general
+# instantiation of K7/K7b (`kernels.cluster_mix_fast`)
 CLUSTER_SHAPES = [
     ("stage0", 4, 128, 128, 128, 4, 8, 2),
     ("stage1", 4, 64, 64, 128, 4, 4, 2),
@@ -807,7 +852,17 @@ CLUSTER_SHAPES = [
     ("stage3", 4, 16, 16, 256, 8, 1, 2),
     ("p3", 2, 64, 64, 96, 4, 2, 2),
     ("tiny2_stage0", 2, 128, 128, 96, 4, 8, 4),
+    ("tiny2_7x7", 2, 28, 28, 96, 4, 2, 7),
+    ("d32_4x4", 2, 64, 64, 128, 4, 4, 4),
 ]
+
+
+def _cluster_path(kernel, shape):
+    """The PATHS counter K7 or K7b advances at this shape."""
+    _, b, h, w, inner, heads, fold, prop = shape
+    fast = kernels.cluster_mix_fast(inner // heads, prop * prop)
+    assert fast is (shape[0].startswith("stage")), shape[0]
+    return f"{kernel}/{'fast' if fast else 'general'}"
 
 
 def _cluster_setup(dev, shape, dt, seed):
@@ -824,10 +879,13 @@ def _cluster_setup(dev, shape, dt, seed):
 def test_cluster_mix_kernel_matches_plain(dev, shape, dt):
     feat, value, _, ab, kw = _cluster_setup(dev, shape, dt, 5)
     before = cluster_fused.LAUNCHES["cluster_mix"]
+    path = _cluster_path("cluster_mix", shape)
+    on_path = cluster_fused.PATHS[path]
     out, asg = cluster_fused.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
     again = cluster_fused.cluster_mix_fwd(feat, value, ab, **kw)
     torch.cuda.synchronize()
     assert cluster_fused.LAUNCHES["cluster_mix"] == before + 2
+    assert cluster_fused.PATHS[path] == on_path + 2
     assert torch.equal(out, again) and out.dtype == dt
     ref, rasg = cluster_fused.cluster_mix_fused_plain(feat, value, ab, return_assign=True, **kw)
     diff = (out.float() - ref.float()).abs()
@@ -846,10 +904,13 @@ def test_cluster_mix_bwd_kernel_matches_plain(dev, shape, dt):
     feat, value, gy, ab, kw = _cluster_setup(dev, shape, dt, 6)
     _, asg = cluster_fused.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
     before = cluster_fused.LAUNCHES["cluster_mix_bwd"]
+    path = _cluster_path("cluster_mix_bwd", shape)
+    on_path = cluster_fused.PATHS[path]
     got = cluster_fused.cluster_mix_bwd(feat, value, gy, ab, return_assign=True, **kw)
     again = cluster_fused.cluster_mix_bwd(feat, value, gy, ab, **kw)
     torch.cuda.synchronize()
     assert cluster_fused.LAUNCHES["cluster_mix_bwd"] == before + 2
+    assert cluster_fused.PATHS[path] == on_path + 2
     assert all(torch.equal(a, b) for a, b in zip(got[:3], again))
     assert torch.equal(got[3], asg)
     want = cluster_fused.cluster_mix_bwd_plain(feat, value, gy, ab, assign=got[3], **kw)

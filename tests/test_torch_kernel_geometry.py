@@ -1,10 +1,17 @@
 """Launch geometry of the block kernels, as pure functions of the shape (no
 card needed): K1's tokens per CTA (`ops/kernels.py::mlp_tokens_per_cta`,
 the SM count passed in) and its tensor-core predicate, K2's feat path
-(tensor cores or CUDA cores) by C, head width and dtype, and the mixer
+(tensor cores or CUDA cores) by C, head width and dtype, the mixer
 backward's (K6, K6r) head groups before the shared-memory fit, products'
-path and epilogue tiles.
+path and epilogue tiles, the MLP backward's (K5) clusters, hidden split and
+token tiles (from its geometry header, built here by the host compiler), and
+the stand-alone cluster mix's (K7, K7b) path and lane mapping.
 """
+import ctypes
+import shutil
+import subprocess
+import types
+
 import pytest
 import torch
 
@@ -120,3 +127,179 @@ def test_mixer_bwd_epilogue_fills_the_card_at_the_train_batch():
     (256 tokens a block left stage 3 with 16 blocks)."""
     for name, hw, c, heads, d, hid in MAIN_PATH:
         assert TRAIN_BATCH * kernels.mixer_bwd_tiles(hw, c) >= H100_SMS, name
+
+
+# ---------------------------------------------------------------------------
+# The MLP backward (K5): its cluster path's hidden split, token tiles and
+# partial rows at the nano shapes (the SM count passed in), as the kernel's
+# own geometry header (csrc/mlp_block_bwd_geometry.h, plain C++) chooses
+# them: the host compiler builds it into a small library for these tests.
+# ---------------------------------------------------------------------------
+
+_K5_SHIM = r"""
+#include "mlp_block_bwd_geometry.h"
+using namespace k5geo;
+extern "C" {
+void k5_pick(int B, int HW, int C, int hid, int sms, int max_active, long long* out) {
+  const Pick p = pick(B, HW, C, hid, sms, max_active);
+  const long long v[] = {p.cs, p.ncl, p.T, p.tiles, p.own_max, p.acc, (long long)p.smem};
+  for (int i = 0; i < 7; ++i) out[i] = v[i];
+}
+int k5_first_slice(int r, int slices, int cs) { return first_slice(r, slices, cs); }
+int k5_own_max(int slices, int cs) { return own_max(slices, cs); }
+void k5_limits(long long* out) {
+  const long long v[] = {kCHid, kCMaxAcc, (long long)kCMaxSmem, kCMaxCluster, kCWideC};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+}
+}
+"""
+_PICK = ("cluster", "clusters", "tile", "tiles", "own_max", "acc_tiles", "smem_bytes")
+
+
+@pytest.fixture(scope="module")
+def k5(tmp_path_factory):
+    """The geometry header built by the host C++ compiler: pick(b, hw, c,
+    hid, sms, max_active=0) -> dict, first_slice(r, slices, cs),
+    own_max(slices, cs) and its limits."""
+    d = tmp_path_factory.mktemp("k5geo")
+    (d / "shim.cpp").write_text(_K5_SHIM)
+    cxx = shutil.which("c++") or shutil.which("g++")
+    assert cxx, "a host C++ compiler is needed to build csrc/mlp_block_bwd_geometry.h"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-I", kernels.CSRC,
+                    str(d / "shim.cpp"), "-o", str(d / "libk5geo.so")], check=True)
+    lib = ctypes.CDLL(str(d / "libk5geo.so"))
+    lim = (ctypes.c_longlong * 5)()
+    lib.k5_limits(lim)
+
+    def pick(b, hw, c, hid, sms, max_active=0):
+        out = (ctypes.c_longlong * 7)()
+        lib.k5_pick(b, hw, c, hid, sms, max_active, out)
+        return dict(zip(_PICK, out))
+
+    return types.SimpleNamespace(
+        pick=pick, first_slice=lib.k5_first_slice, own_max=lib.k5_own_max,
+        **dict(zip(("slice", "max_acc", "max_smem", "max_cluster", "wide_c"), lim)))
+
+
+def _rank_units(k5, hid, cs):
+    """(first hidden unit, hidden units) of each rank, as the kernel reads them."""
+    s = hid // k5.slice
+    return [(k5.first_slice(r, s, cs) * k5.slice,
+             (k5.first_slice(r + 1, s, cs) - k5.first_slice(r, s, cs)) * k5.slice)
+            for r in range(cs)]
+
+
+@pytest.mark.parametrize("batch", [1, 8, 16, 32])
+def test_mlp_bwd_geometry_covers_every_unit_and_token_once(k5, batch):
+    bytes_per_step = 0
+    for name, hw, c, heads, d, hid in MAIN_PATH:
+        g = k5.pick(batch, hw, c, hid, H100_SMS)
+        cs, ncl, tiles = g["cluster"], g["clusters"], g["tiles"]
+        assert 1 <= cs <= k5.max_cluster and 1 <= ncl <= tiles, name
+        # whole tiles of one sample each, covering its tokens
+        assert g["tile"] in (64, 128) and hw % g["tile"] == 0, name
+        assert tiles * g["tile"] == batch * hw, name
+        # the ranks' hidden units partition [0, hid), none larger than own_max
+        units = _rank_units(k5, hid, cs)
+        covered = [j for j0, own in units for j in range(j0, j0 + own)]
+        assert covered == list(range(hid)), name
+        assert all(0 < own <= g["own_max"] for _, own in units), name
+        # registers and shared memory of a rank fit
+        assert g["acc_tiles"] <= k5.max_acc, name
+        assert g["smem_bytes"] <= k5.max_smem, name
+        # one row of partials per cluster, at most one CTA per SM in all
+        assert ncl * cs <= H100_SMS, name
+        if batch == TRAIN_BATCH:
+            calls = {"stage0": 4, "stage1": 4, "stage2": 12, "stage3": 4}.get(name, 1)
+            bytes_per_step += calls * ncl * (2 * c * hid + hid + c + 2 * batch) * 4
+    if batch == TRAIN_BATCH:
+        # the parent wrote 850 MB of rows a fused step (one per 128 tokens)
+        assert bytes_per_step < 160e6
+
+
+def test_mlp_bwd_geometry_fills_the_card_where_the_tokens_allow(k5):
+    """Stage 3 and p5 (64 tiles at batch 16) get a hidden split of 8: 128
+    CTAs where the parent had 32.  Stage 2's 10 slices split evenly over a
+    cluster of 5 (the largest divisor up to 8), its 80 channels take tiles
+    of 128 tokens; p4's 20 slices fall back to 8 (uneven: 5 and 10 ranks
+    would not fit their weight slices in shared memory)."""
+    for name, hw, c, heads, d, hid in MAIN_PATH:
+        g = k5.pick(TRAIN_BATCH, hw, c, hid, H100_SMS)
+        assert g["clusters"] * g["cluster"] >= min(H100_SMS - 12, g["tiles"] * g["cluster"])
+        assert (g["tile"] == 128) is (c <= k5.wide_c), name
+    g = k5.pick(TRAIN_BATCH, 16 * 16, 128, 512, H100_SMS)
+    assert (g["cluster"], g["clusters"], g["tile"]) == (8, 16, 64)
+    g = k5.pick(TRAIN_BATCH, 32 * 32, 80, 320, H100_SMS)
+    assert (g["cluster"], g["clusters"], g["own_max"], g["tile"]) == (5, 26, 64, 128)
+    g = k5.pick(TRAIN_BATCH, 32 * 32, 160, 640, H100_SMS)
+    assert (g["cluster"], g["own_max"]) == (8, 96)
+    # the card holds fewer clusters at once: no second wave
+    assert k5.pick(TRAIN_BATCH, 16 * 16, 128, 512, H100_SMS, max_active=15)["clusters"] == 15
+
+
+@pytest.mark.parametrize("hid, cs", [(320, 8), (352, 8), (96, 2), (224, 4), (640, 8)])
+def test_mlp_bwd_uneven_hidden_split(k5, hid, cs):
+    """A hidden width whose slices do not divide by the cluster: ranks own
+    whole slices, differing by at most one."""
+    owns = [own for _, own in _rank_units(k5, hid, cs)]
+    assert sum(owns) == hid and max(owns) - min(owns) <= k5.slice
+    assert all(own % k5.slice == 0 for own in owns)
+    assert max(owns) == k5.own_max(hid // k5.slice, cs)
+
+
+@pytest.mark.parametrize("hw, c, hid, dtype, ok", [
+    (16384, 16, 128, torch.bfloat16, True), (1024, 160, 640, torch.bfloat16, True),
+    (1024, 176, 640, torch.bfloat16, False),   # wider than 160
+    (1024, 80, 100, torch.bfloat16, False),    # hid not whole slices
+    (96, 64, 256, torch.bfloat16, False),      # H*W not whole tiles of 64
+    (64, 64, 256, torch.bfloat16, True),
+    (1024, 24, 96, torch.bfloat16, False), (1024, 64, 256, torch.float32, False),
+])
+def test_mlp_bwd_cluster_shape(k5, hw, c, hid, dtype, ok):
+    """Which shapes take the cluster path; f32 always takes the FMA path
+    (the wrapper asks the card only in bf16)."""
+    if dtype == torch.bfloat16:
+        assert (k5.pick(1, hw, c, hid, H100_SMS)["cluster"] > 0) is ok
+    else:
+        geo = kernels.mlp_bwd_launch(1, hw, c, hid, dtype, torch.device("cpu"))
+        assert geo["cluster"] == 0 and geo["chunks"] > 0
+    assert "mlp_block_bwd/cluster" in block.PATHS and "mlp_block_bwd_z1/fma" in block.PATHS
+
+
+# ---------------------------------------------------------------------------
+# The stand-alone cluster mix (K7, K7b): which instantiation a shape takes and
+# the thread mapping of its per-token phases.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d, m, fast", [(32, 4, True), (32, 1, True), (24, 4, False),
+                                        (32, 16, False), (24, 16, False), (24, 49, False),
+                                        (64, 4, False), (8, 4, False)])
+def test_cluster_mix_path(d, m, fast):
+    assert kernels.cluster_mix_fast(d, m) is fast
+
+
+def _cluster_mix_lanes(tid, tokens, head_dim, fast):
+    """The (token, channel) pairs thread `tid` of K7/K7b's 256 reads of one
+    input in a per-token phase, as csrc/cluster_mix.cuh states its mapping:
+    token slot tid // 8 takes tokens slot, slot + 32, ...; lane tid % 8
+    takes channels 4*lane .. 4*lane + 3 (fast) or lane, lane + 8, ...
+    (general)."""
+    slot, lane = divmod(tid, 8)
+    chans = range(4 * lane, 4 * lane + 4) if fast else range(lane, head_dim, 8)
+    return [(n, d) for n in range(slot, tokens, 32) for d in chans]
+
+
+@pytest.mark.parametrize("tokens, d, fast", [(256, 32, True), (196, 32, True),
+                                             (256, 24, False), (1024, 24, False),
+                                             (64, 12, False)])
+def test_cluster_mix_lanes_cover_each_token_channel_once(tokens, d, fast):
+    """The 256 threads read every (token, channel) of a region exactly
+    once, 8 lanes a token (4 tokens a warp), the same trip count in every
+    lane (the 8-lane shuffles need it)."""
+    pairs = [_cluster_mix_lanes(t, tokens, d, fast) for t in range(256)]
+    flat = sorted(p for ps in pairs for p in ps)
+    assert flat == [(n, c) for n in range(tokens) for c in range(d)]
+    for t in range(256):
+        assert {n for n, _ in pairs[t]} == set(range(t // 8, tokens, 32))
+    # a warp's 32 lanes take 4 consecutive tokens
+    assert {pairs[t][0][0] for t in range(32)} == {0, 1, 2, 3}
