@@ -22,8 +22,10 @@
 // and K7b always take the same one):
 //   fast     D == 32, M <= 4: lane `sub` holds channels 4*sub .. 4*sub + 3
 //            (one 8- or 16-byte load), the M cosines of a token are formed
-//            at once from centers held in registers, and the backward's
-//            per-proposal sums are register sums;
+//            at once from centers held in registers and summed over the 8
+//            lanes by a reduce-scatter (lanes 2m, 2m + 1 end with cosine m
+//            and take its sigmoid), and the per-proposal sums are register
+//            sums;
 //   general  any D >= 8 and M: lane `sub` takes channels sub, sub + 8, ...
 //            and the proposals one after another.
 // The CTA's tiles of the inputs (N tokens x D channels each) are staged in
@@ -205,6 +207,19 @@ __device__ __forceinline__ float group_sum(float v) {
   return v;
 }
 
+// The sums over a token's kLanes lanes of the 4 values v[0..3], one a lane:
+// lanes 2m and 2m + 1 of the group get the sum of v[m], with the bits
+// group_sum(v[m]) gives (each step adds the same two partial sums; only
+// the operands' order differs).  All 32 lanes must call it.
+__device__ __forceinline__ float scatter_sum4(const float (&v)[4], int sub) {
+  const bool hi = sub & 4, h2 = sub & 2;
+  const float k0 = hi ? v[2] : v[0], k1 = hi ? v[3] : v[1];
+  const float b0 = __fadd_rn(k0, __shfl_xor_sync(0xffffffffu, hi ? v[0] : v[2], 4));
+  const float b1 = __fadd_rn(k1, __shfl_xor_sync(0xffffffffu, hi ? v[1] : v[3], 4));
+  const float c = __fadd_rn(h2 ? b1 : b0, __shfl_xor_sync(0xffffffffu, h2 ? b0 : b1, 2));
+  return __fadd_rn(c, __shfl_xor_sync(0xffffffffu, c, 1));
+}
+
 // Sum over the 4 token slots of a warp (lanes with the same sub-lane), for
 // values that are the same in the 8 lanes of a slot or per sub-lane.
 __device__ __forceinline__ float slot_sum(float v) {
@@ -231,29 +246,57 @@ __device__ __forceinline__ float sigmoid(float z) {
 // Centers of the CTA's (sample, region, head), all [M][D] f32 in shared
 // memory: crep = pooled feat, vc = pooled value, cn = crep / |crep| and cnr =
 // cn rounded to the working type; invc [M] = 1 / |crep|.  Also fills the
-// window table win [M] (kWindowFloats floats each).  Thread (which, m, d)
+// window table win [M] (kWindowFloats floats each).  Each (which, m, d)
 // walks its window's rows in 4 fixed classes (row - lh mod 4), whose sums
-// are added in a fixed order.  Ends with __syncthreads.
-template <typename T, typename VIEW>
+// are added in a fixed order, (c0 + c1) + (c2 + c3).  general: a thread per
+// (which, m, d) holds the 4 classes; fast: a thread per (which, m, 4
+// channels, class), the classes in 4 adjacent lanes added by shuffles (the
+// same bits).  Ends with __syncthreads.
+template <typename T, bool kFast, typename VIEW>
 __device__ void centers(const Geo& g, const VIEW& X, const VIEW& V, Window* win, float* crep,
                         float* vc, float* invc, float* cn, float* cnr) {
   const int tid = threadIdx.x, MD = g.M * g.D;
   for (int m = tid; m < g.M; m += kThreads) win[m] = window<T>(g, m);
   __syncthreads();
-  for (int e = tid; e < 2 * MD; e += kThreads) {
-    const int which = e / MD, m = (e % MD) / g.D, d = e % g.D;
-    const VIEW src = which ? V : X;
-    const Window o = win[m];
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int i = o.lh; i < o.hh; i += 4)
-      for (int j = o.lw; j < o.hw; ++j) {
+  if constexpr (kFast) {
+    static_assert(2 * kFastM * (kFastD / 4) * 4 == kThreads, "one thread per task");
+    const int k = tid & 3, c4 = (tid >> 2) & 7, m = (tid >> 5) & 3, which = tid >> 7;
+    if (m < g.M) {  // the same in the whole warp
+      const VIEW src = which ? V : X;
+      const Window o = win[m];
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int i = o.lh + k; i < o.hh; i += 4)
+        for (int j = o.lw; j < o.hw; ++j) {
+          float xv[4];
+          load4(src.at(i * g.rw + j) + 4 * c4, xv);
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (i + k < o.hh)
-            acc[k] = __fmaf_rn(o.w, to_f<T>(src.at((i + k) * g.rw + j)[d]), acc[k]);
+          for (int c = 0; c < 4; ++c) acc[c] = __fmaf_rn(o.w, xv[c], acc[c]);
+        }
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float h = __fadd_rn(acc[c], __shfl_xor_sync(0xffffffffu, acc[c], 1));
+        acc[c] = __fadd_rn(h, __shfl_xor_sync(0xffffffffu, h, 2));
       }
-    (which ? vc : crep)[m * g.D + d] =
-        __fadd_rn(__fadd_rn(acc[0], acc[1]), __fadd_rn(acc[2], acc[3]));
+      if (k == 0)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) (which ? vc : crep)[m * g.D + 4 * c4 + c] = acc[c];
+    }
+  } else {
+    for (int e = tid; e < 2 * MD; e += kThreads) {
+      const int which = e / MD, m = (e % MD) / g.D, d = e % g.D;
+      const VIEW src = which ? V : X;
+      const Window o = win[m];
+      float acc[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int i = o.lh; i < o.hh; i += 4)
+        for (int j = o.lw; j < o.hw; ++j) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (i + k < o.hh)
+              acc[k] = __fmaf_rn(o.w, to_f<T>(src.at((i + k) * g.rw + j)[d]), acc[k]);
+        }
+      (which ? vc : crep)[m * g.D + d] =
+          __fadd_rn(__fadd_rn(acc[0], acc[1]), __fadd_rn(acc[2], acc[3]));
+    }
   }
   __syncthreads();
   const int lane = tid & 31;
@@ -307,19 +350,20 @@ __device__ void assign(const Geo& g, const VIEW& X, const float* cnr, float alph
 #pragma unroll
         for (int m = 0; m < kFastM; ++m) acc[m] = __fmaf_rn(cr[m][k], xn, acc[m]);
       }
-#pragma unroll
-      for (int m = 0; m < kFastM; ++m) acc[m] = group_sum(acc[m]);
+      // cosine sub / 2 in this lane (the bits of group_sum: the same pairs,
+      // a + b == b + a), its sigmoid, then the first max over the slot
+      const float raw = scatter_sum4(acc, sub);
+      const float sm = sigmoid(__fadd_rn(beta, __fmul_rn(alpha, raw)));
+      const int base = (threadIdx.x & 31) & ~(kLanes - 1);
 #pragma unroll
       for (int m = 0; m < kFastM; ++m) {
-        if (m < M) {
-          const float sm = sigmoid(__fadd_rn(beta, __fmul_rn(alpha, acc[m])));
-          if (m == 0 || sm > best) {  // strict >: the first max wins
-            best = sm;
-            a = m;
-            rbest = acc[m];
-          }
+        const float sv = __shfl_sync(0xffffffffu, sm, base + 2 * m);
+        if (m < M && (m == 0 || sv > best)) {  // strict >: the first max wins
+          best = sv;
+          a = m;
         }
       }
+      rbest = __shfl_sync(0xffffffffu, raw, base + 2 * a);
     } else {
       float n2 = 0.f;
       for (int d = sub; d < D; d += kLanes) {
@@ -348,6 +392,101 @@ __device__ void assign(const Geo& g, const VIEW& X, const float* cnr, float alph
     }
   }
   __syncthreads();
+}
+
+// Phase C of both kernels: the mixed centers of the CTA's (sample, region,
+// head) from each token's winner (sim s, proposal arg),
+//   oc [M][D]   = (sum of rnd(s) * value + vc) / (count + 1),
+//   dnum [M][D] = (sum of s * g) / (count + 1)   (kGrad only),
+// as K7 and K7b both compute them: one order of every sum, so K7's output
+// and K7b's rematerialised forward hold the same bits.  fast: each thread
+// sums its own tokens (slot q takes q, q + kTok, ...; its 4 channels) in
+// registers, the warp's 4 slots by shuffles, then the kWarps warp sums in
+// a fixed pairwise order through `part` ([kWarps][1 + kGrad][kFastM]
+// [kFastD] floats) and `cntw` ([kWarps][kFastM] ints).  general: one
+// thread per (proposal, channel) walks the tokens in order.  No float
+// atomics.  Call it after a barrier that shows s, arg and the tiles to
+// every thread; it ends with __syncthreads.
+template <typename T, bool kFast, bool kGrad, typename VIEW>
+__device__ void mixed_centers(const Geo& g, const VIEW& V, const VIEW& G, const float* s,
+                              const unsigned char* arg, const float* vc, float* part,
+                              int* cntw, float* oc, float* dnum) {
+  const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
+  const int sub = tid % kLanes, q = tid / kLanes, D = g.D, M = g.M, MD = M * D, N = g.N;
+  if constexpr (kFast) {
+    constexpr int kSet = kFastM * kFastD, kStride = (kGrad ? 2 : 1) * kSet;
+    float ag[kFastM][4] = {}, dc[kFastM][4] = {};
+    int cnt[kFastM] = {0, 0, 0, 0};
+    for (int n = q; n < N; n += kTok) {
+      const int m = arg[n];
+      const float sf = s[n], sr = rnd<T>(sf);
+      float vv[4], gg[4];
+      load4(V.at(n) + 4 * sub, vv);
+      if constexpr (kGrad) load4(G.at(n) + 4 * sub, gg);
+#pragma unroll
+      for (int mm = 0; mm < kFastM; ++mm) {
+        if (mm == m) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            ag[mm][k] = __fmaf_rn(sr, vv[k], ag[mm][k]);
+            if constexpr (kGrad) dc[mm][k] = __fmaf_rn(sf, gg[k], dc[mm][k]);
+          }
+          ++cnt[mm];
+        }
+      }
+    }
+#pragma unroll
+    for (int mm = 0; mm < kFastM; ++mm) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float a = slot_sum(ag[mm][k]);
+        if (lane < kLanes) part[w * kStride + mm * kFastD + 4 * sub + k] = a;
+        if constexpr (kGrad) {
+          const float c = slot_sum(dc[mm][k]);
+          if (lane < kLanes) part[w * kStride + kSet + mm * kFastD + 4 * sub + k] = c;
+        }
+      }
+      int c = cnt[mm];
+      c += __shfl_xor_sync(0xffffffffu, c, 8);
+      c += __shfl_xor_sync(0xffffffffu, c, 16);
+      if (lane == 0) cntw[w * kFastM + mm] = c;
+    }
+    __syncthreads();
+    for (int e = tid; e < MD; e += kThreads) {
+      const int m = e / D;
+      int c = 0;
+      for (int k = 0; k < kWarps; ++k) c += cntw[k * kFastM + m];
+      const float ic = __fdiv_rn(1.f, __fadd_rn((float)c, 1.f));
+      oc[e] = __fmul_rn(__fadd_rn(warps_sum(part + e, kStride), vc[e]), ic);
+      if constexpr (kGrad) dnum[e] = __fmul_rn(warps_sum(part + kSet + e, kStride), ic);
+    }
+  } else {
+    for (int e = tid; e < MD; e += kThreads) {
+      const int m = e / D, d = e % D;
+      float a = 0.f, qd = 0.f, c = 0.f;
+      for (int n = 0; n < N; ++n) {
+        if (arg[n] == m) {
+          const float sf = s[n];
+          a = __fmaf_rn(rnd<T>(sf), to_f<T>(V.at(n)[d]), a);
+          if constexpr (kGrad) qd = __fmaf_rn(sf, to_f<T>(G.at(n)[d]), qd);
+          c = __fadd_rn(c, 1.f);
+        }
+      }
+      const float ic = __fdiv_rn(1.f, __fadd_rn(c, 1.f));
+      oc[e] = __fmul_rn(__fadd_rn(a, vc[e]), ic);
+      if constexpr (kGrad) dnum[e] = __fmul_rn(qd, ic);
+    }
+  }
+  __syncthreads();
+}
+
+// Writes the CTA's [M][D] mixed centers to row (b, h, r) of a (B, heads,
+// regions, M, D) f32 tensor (a check of K7 against K7b: the same bits).
+__device__ __forceinline__ void store_centers(const Geo& g, int b, int r, int h,
+                                              const float* oc, float* out) {
+  const int MD = g.M * g.D;
+  float* row = out + (((size_t)b * g.heads + h) * (g.fold_h * g.fold_w) + r) * MD;
+  for (int e = threadIdx.x; e < MD; e += kThreads) row[e] = oc[e];
 }
 
 // Writes the CTA's assignments into the (B, H, W, heads) int8 map.

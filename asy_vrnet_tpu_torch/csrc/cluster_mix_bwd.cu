@@ -5,7 +5,8 @@
 // bits on every run).  The forward is rematerialised in full; the hard
 // assignment is a constant, as autograd through argmax/one_hot treats it.
 // Optionally writes the winning proposal per (token, head) as int8, equal
-// to the forward's (cluster_mix.cuh rebuilds it with the same code).
+// to the forward's (cluster_mix.cuh rebuilds it with the same code), and
+// the mixed centers, equal to the forward's.
 //
 // Replaces the TPU kernel asy_vrnet_tpu/ops/cluster_pallas.py::
 // _cluster_nhwc_pallas_bwd (kernel _cluster_bwd_kernel, body
@@ -25,7 +26,8 @@
 //   A./B. centers and assignment (cluster_mix.cuh), keeping per token the
 //      winner's sim, proposal, raw cosine and the token's inverse norm;
 //   C. the per-proposal sums of rnd(sim) * value and sim * g and the
-//      counts: the mixed centers oc and d oc;
+//      counts: the mixed centers oc and d oc (cluster_mix.cuh::
+//      mixed_centers, K7's own phase C: the same bits of oc);
 //   D. per token: d sim at the winner (oc . g + d num . value), dvalue
 //      (sim * d num[winner] plus the pooling term), the sigmoid's gradient,
 //      d raw, the [d alpha, d beta] sums and the sums of d raw * xn per
@@ -93,7 +95,8 @@ __global__ void __launch_bounds__(kThreads)
 cluster_mix_bwd_kernel(const T* __restrict__ x, const T* __restrict__ v,
                        const T* __restrict__ gy, const float* __restrict__ ab,
                        T* __restrict__ dx, T* __restrict__ dv, float* __restrict__ dab,
-                       int8_t* __restrict__ assign_out, Geo g, Layout L) {
+                       int8_t* __restrict__ assign_out, float* __restrict__ centers_out, Geo g,
+                       Layout L) {
   using asy::from_f;
   using asy::rnd;
   using asy::to_f;
@@ -141,7 +144,7 @@ cluster_mix_bwd_kernel(const T* __restrict__ x, const T* __restrict__ v,
   }
   __syncthreads();
 
-  centers<T>(g, X, V, win, crep, vc, invc, cn, cnr);
+  centers<T, kFast>(g, X, V, win, crep, vc, invc, cn, cnr);
   if constexpr (kFast) {  // each token's windows (read after C's barriers)
     for (int n = tid; n < N; n += kThreads) {
       int j;
@@ -157,72 +160,9 @@ cluster_mix_bwd_kernel(const T* __restrict__ x, const T* __restrict__ v,
     __syncthreads();
   }
 
-  // C. per-proposal sums of rnd(sim) * value and sim * g, and the counts
-  if constexpr (kFast) {
-    float ag[kFastM][4] = {}, dc[kFastM][4] = {};
-    int cnt[kFastM] = {0, 0, 0, 0};
-    for (int n = q; n < N; n += kTok) {
-      const int m = arg[n];
-      const float sf = s[n], sr = rnd<T>(sf);
-      float vv[4], gg[4];
-      load4(V.at(n) + 4 * sub, vv);
-      load4(G.at(n) + 4 * sub, gg);
-#pragma unroll
-      for (int mm = 0; mm < kFastM; ++mm) {
-        if (mm == m) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            ag[mm][k] = __fmaf_rn(sr, vv[k], ag[mm][k]);
-            dc[mm][k] = __fmaf_rn(sf, gg[k], dc[mm][k]);
-          }
-          ++cnt[mm];
-        }
-      }
-    }
-#pragma unroll
-    for (int mm = 0; mm < kFastM; ++mm) {
-#pragma unroll
-      for (int k = 0; k < 4; ++k) {
-        const float a = slot_sum(ag[mm][k]), c = slot_sum(dc[mm][k]);
-        if (lane < kLanes) {
-          part[(w * 2 + 0) * kFastM * kFastD + mm * kFastD + 4 * sub + k] = a;
-          part[(w * 2 + 1) * kFastM * kFastD + mm * kFastD + 4 * sub + k] = c;
-        }
-      }
-      int c = cnt[mm];
-      c += __shfl_xor_sync(0xffffffffu, c, 8);
-      c += __shfl_xor_sync(0xffffffffu, c, 16);
-      if (lane == 0) cntw[w * kFastM + mm] = c;
-    }
-    __syncthreads();
-    for (int e = tid; e < MD; e += kThreads) {
-      const int m = e / D;
-      int c = 0;
-      for (int k = 0; k < kWarps; ++k) c += cntw[k * kFastM + m];
-      const float ic = __fdiv_rn(1.f, __fadd_rn((float)c, 1.f));
-      const float a = warps_sum(part + e, 2 * kFastM * kFastD);
-      const float qd = warps_sum(part + kFastM * kFastD + e, 2 * kFastM * kFastD);
-      oc[e] = __fmul_rn(__fadd_rn(a, vc[e]), ic);
-      dnum[e] = __fmul_rn(qd, ic);
-    }
-  } else {
-    for (int e = tid; e < MD; e += kThreads) {
-      const int m = e / D, d = e % D;
-      float a = 0.f, qd = 0.f, c = 0.f;
-      for (int n = 0; n < N; ++n) {
-        if (arg[n] == m) {
-          const float sf = s[n];
-          a = __fmaf_rn(rnd<T>(sf), to_f<T>(V.at(n)[d]), a);
-          qd = __fmaf_rn(sf, to_f<T>(G.at(n)[d]), qd);
-          c = __fadd_rn(c, 1.f);
-        }
-      }
-      const float ic = __fdiv_rn(1.f, __fadd_rn(c, 1.f));
-      oc[e] = __fmul_rn(__fadd_rn(a, vc[e]), ic);
-      dnum[e] = __fmul_rn(qd, ic);
-    }
-  }
-  __syncthreads();
+  // C. the mixed centers oc and d oc / (count + 1), as K7 computes oc
+  mixed_centers<T, kFast, true>(g, V, G, s, arg, vc, part, cntw, oc, dnum);
+  if (centers_out != nullptr) store_centers(g, b, r, h, oc, centers_out);
 
   // D. per token: d sim at the winner, dvalue, d raw, d alpha / d beta (and,
   // fast, the register sums of d raw * xn per proposal)
@@ -406,8 +346,8 @@ auto kernel_for(bool fast, bool staged) {
 
 template <typename T>
 int launch(const void* x, const void* v, const void* gy, const float* ab, void* dx,
-           void* dv, float* dab, int8_t* assign, int B, int H, int W, int C, int heads,
-           int fold_h, int fold_w, int ph, int pw, int fast, void* stream) {
+           void* dv, float* dab, int8_t* assign, float* centers, int B, int H, int W, int C,
+           int heads, int fold_h, int fold_w, int ph, int pw, int fast, void* stream) {
   Geo g;
   int err = make_geo(g, B, H, W, C, heads, fold_h, fold_w, ph, pw);
   if (err) return err;
@@ -418,7 +358,7 @@ int launch(const void* x, const void* v, const void* gy, const float* ab, void* 
   if (e != cudaSuccess) return (int)e;
   const dim3 grid(fold_h * fold_w, heads, B);
   kernel<<<grid, kThreads, L.bytes, (cudaStream_t)stream>>>(
-      (const T*)x, (const T*)v, (const T*)gy, ab, (T*)dx, (T*)dv, dab, assign, g, L);
+      (const T*)x, (const T*)v, (const T*)gy, ab, (T*)dx, (T*)dv, dab, assign, centers, g, L);
   return (int)cudaGetLastError();
 }
 
@@ -428,21 +368,22 @@ extern "C" {
 
 // x (feat), v (value), gy (cotangent of out), dx, dv: (B, H, W, C) NHWC in
 // one type; ab = [alpha, beta] f32; dab (B * heads * fold_h * fold_w, 2) f32
-// partial rows; assign (B, H, W, heads) int8 or null; fast: the wrapper's
-// reading of fast_path (a launch that disagrees is refused).
+// partial rows; assign (B, H, W, heads) int8 or null; centers (B, heads,
+// fold_h * fold_w, ph * pw, D) f32 or null: the mixed centers; fast: the
+// wrapper's reading of fast_path (a launch that disagrees is refused).
 int cluster_mix_bwd_bf16(const void* x, const void* v, const void* gy, const float* ab,
-                         void* dx, void* dv, float* dab, int8_t* assign, int B, int H,
-                         int W, int C, int heads, int fold_h, int fold_w, int ph, int pw,
-                         int fast, void* stream) {
-  return launch<__nv_bfloat16>(x, v, gy, ab, dx, dv, dab, assign, B, H, W, C, heads,
+                         void* dx, void* dv, float* dab, int8_t* assign, float* centers, int B,
+                         int H, int W, int C, int heads, int fold_h, int fold_w, int ph,
+                         int pw, int fast, void* stream) {
+  return launch<__nv_bfloat16>(x, v, gy, ab, dx, dv, dab, assign, centers, B, H, W, C, heads,
                                fold_h, fold_w, ph, pw, fast, stream);
 }
 
 int cluster_mix_bwd_f32(const void* x, const void* v, const void* gy, const float* ab,
-                        void* dx, void* dv, float* dab, int8_t* assign, int B, int H, int W,
-                        int C, int heads, int fold_h, int fold_w, int ph, int pw, int fast,
-                        void* stream) {
-  return launch<float>(x, v, gy, ab, dx, dv, dab, assign, B, H, W, C, heads, fold_h,
+                        void* dx, void* dv, float* dab, int8_t* assign, float* centers, int B,
+                        int H, int W, int C, int heads, int fold_h, int fold_w, int ph, int pw,
+                        int fast, void* stream) {
+  return launch<float>(x, v, gy, ab, dx, dv, dab, assign, centers, B, H, W, C, heads, fold_h,
                        fold_w, ph, pw, fast, stream);
 }
 

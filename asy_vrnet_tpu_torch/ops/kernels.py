@@ -51,16 +51,17 @@ _LIBS: dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _SIGS = {
     "mixer_block": [_P] * 15 + [_I] * 12 + [_P],
     "mlp_block": [_P] * 8 + [_I] * 5 + [_P],
     "mixer_block_bwd": [_P] * 21 + [_I] * 13 + [_P],
     "mlp_block_bwd": [_P] * 9 + [_I] * 8 + [_P],
-    "cluster_mix": [_P] * 5 + [_I] * 10 + [_P],
-    "cluster_mix_bwd": [_P] * 8 + [_I] * 10 + [_P],
+    "cluster_mix": [_P] * 6 + [_I] * 10 + [_P],
+    "cluster_mix_bwd": [_P] * 9 + [_I] * 10 + [_P],
     "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
     "seg_loss_dlogits": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
-    "simota_assign": [_P] * 15 + [_I] * 4 + [_F, _I, _P],
+    "simota_assign": [_P] * 3 + [_LL] * 6 + [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_F, _I, _P],
 }
 # element types each source is instantiated for (entry = "<source>_<suffix>")
 _SUFFIXES = {"simota_assign": ("f32",)}
@@ -168,11 +169,14 @@ def _call(name: str, x: torch.Tensor, *args, entry: str | None = None) -> None:
     """Launch `<entry>_<bf16|f32>` (entry defaults to the source's name) of
     library `name` on x's device and current stream; raises on an error."""
     lib, fn = _entry(name, entry, x.dtype == torch.bfloat16)
-    if x.device.index == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    # the raw stream handle: `current_stream().cuda_stream` builds a Stream
+    # object first, host time on every launch
+    index = x.device.index
+    if index == torch.cuda.current_device():
+        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     else:
         with torch.cuda.device(x.device):
-            err = fn(*args, torch.cuda.current_stream(x.device).cuda_stream)
+            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
     if err:
         msg = lib.asy_cuda_error_string(err).decode()
         raise RuntimeError(f"{entry or name} kernel launch failed: {msg} (code {err})")
@@ -500,25 +504,28 @@ def cluster_mix_fast(head_dim: int, proposals: int) -> bool:
 
 
 def cluster_mix(feat, value, alpha_beta, out, assign, *, heads, fold_h, fold_w,
-                proposal_h, proposal_w, fast) -> None:
+                proposal_h, proposal_w, fast, centers=None) -> None:
     """Launch the cluster mix forward (K7); tensors are checked by the
     caller (16-byte aligned on the fast path).  `assign` (B, H, W, heads)
-    int8 may be None."""
+    int8 may be None; `centers` (B, heads, fold_h * fold_w, proposal_h *
+    proposal_w, head_dim) f32, where given, receives the mixed centers
+    (the bits K7b computes: csrc/cluster_mix.cuh::mixed_centers)."""
     b, h, w, c = feat.shape
     _call("cluster_mix", feat, _ptr(feat), _ptr(value), _ptr(alpha_beta), _ptr(out),
-          _ptr(assign), b, h, w, c, heads, fold_h, fold_w, proposal_h, proposal_w, int(fast))
+          _ptr(assign), _ptr(centers), b, h, w, c, heads, fold_h, fold_w, proposal_h,
+          proposal_w, int(fast))
 
 
 def cluster_mix_bwd(feat, value, g, alpha_beta, dx, dv, dab, assign, *, heads, fold_h,
-                    fold_w, proposal_h, proposal_w, fast) -> None:
+                    fold_w, proposal_h, proposal_w, fast, centers=None) -> None:
     """Launch the cluster mix backward (K7b); tensors are checked by the
     caller (16-byte aligned on the fast path).  `dab` is (B * heads *
     fold_h * fold_w, 2) f32, one row of [d alpha, d beta] partials per
-    block; `assign` may be None."""
+    block; `assign` and `centers` (as `cluster_mix`'s) may be None."""
     b, h, w, c = feat.shape
     _call("cluster_mix_bwd", feat, _ptr(feat), _ptr(value), _ptr(g), _ptr(alpha_beta),
-          _ptr(dx), _ptr(dv), _ptr(dab), _ptr(assign), b, h, w, c, heads, fold_h, fold_w,
-          proposal_h, proposal_w, int(fast))
+          _ptr(dx), _ptr(dv), _ptr(dab), _ptr(assign), _ptr(centers), b, h, w, c, heads,
+          fold_h, fold_w, proposal_h, proposal_w, int(fast))
 
 
 def cluster_mix_info(dtype, shape, *, heads, fold_h, fold_w, proposal_h, proposal_w,
@@ -559,13 +566,17 @@ def seg_loss_dlogits(logits, target, weights, coef, out, alpha, gamma,
 
 
 def simota_assign(pred_boxes, cls_logits, obj_logits, gt_boxes, gt_classes, gt_valid,
-                  grids, strides, fg_pre, logs, picks, dynamic_ks, fg, matched,
-                  pred_iou, *, center_radius, candidate_k) -> None:
+                  grids, strides, scratch, outputs, *, center_radius, candidate_k) -> None:
     """Launch the three SimOTA kernels (prep, rows, resolve) of one batch;
-    tensors are checked by the caller."""
+    tensors are checked by the caller.  The predictions are read through
+    their batch and anchor strides (f32, last dimension contiguous);
+    gt_classes is int32 or int64.  `scratch` holds the device addresses of
+    fg_pre, cls_cost, picks and counts, `outputs` those of dynamic_ks, fg,
+    matched, pred_iou and num_fg (csrc/simota_assign.cu's entry names their
+    shapes)."""
     b, a, c = cls_logits.shape
-    _call("simota_assign", pred_boxes, _ptr(pred_boxes), _ptr(cls_logits),
-          _ptr(obj_logits), _ptr(gt_boxes), _ptr(gt_classes), _ptr(gt_valid),
-          _ptr(grids), _ptr(strides), _ptr(fg_pre), _ptr(logs), _ptr(picks),
-          _ptr(dynamic_ks), _ptr(fg), _ptr(matched), _ptr(pred_iou), b, a,
+    _call("simota_assign", pred_boxes, _ptr(pred_boxes), _ptr(cls_logits), _ptr(obj_logits),
+          *pred_boxes.stride()[:2], *cls_logits.stride()[:2], *obj_logits.stride(),
+          _ptr(gt_boxes), _ptr(gt_classes), int(gt_classes.dtype == torch.int64),
+          _ptr(gt_valid), _ptr(grids), _ptr(strides), *scratch, *outputs, b, a,
           gt_boxes.shape[1], c, center_radius, candidate_k)

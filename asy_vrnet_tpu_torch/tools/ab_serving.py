@@ -2,7 +2,7 @@
 the mixer half's backward (K6, K6r), for comparing two checkouts of the
 port on one card.
 
-    cd <checkout> && python <this file> {check|time|time-bwd|forward} [--tag NAME]
+    cd <checkout> && python <this file> {check|time|time-bwd|forward|bits} [--tag NAME]
 
 The port is imported from the current directory, so one copy of this file
 measures any checkout whose `ops/block.py`, `ops/kernels.py` and
@@ -36,11 +36,25 @@ prints one line per record, `AB {json}`, with the tag.
   (`kernels.mlp_block_bwd_info`, `kernels.cluster_mix_info`, the
   `PATHS` of `ops/block.py` and `ops/cluster_fused.py`) the CTAs, cluster
   size, partial-row bytes, CTAs per SM, registers, shared memory, threads
-  and path.  Last, each kernel's per-step sums (calls per train step x
-  ms).  `--only k6,k5,k7` picks families (default: all).
+  and path.  Then K3 (SimOTA, one wrapper call of three kernels) on two
+  inputs: the step's data (`make_batch(default_rng(70), 16, 512^2,
+  max_boxes=100)` through the r05 head, sliced as `yolox_loss` slices it:
+  48 valid GT rows) and chip_smoke.py's probe (seed 6, noised logits,
+  0/1/7/100 GTs x 4: 432 valid rows): per call, the trace device ms of
+  each kernel and of the wrapper's other device operations, the device
+  operations per call, events and host microseconds, and K3 against its
+  plain twin on the same input (fg agreement, matched GT equal where both
+  are fg, num_fg, dynamic-k agreement).  Last, each kernel's per-step sums
+  (calls per train step x ms).  `--only k6,k5,k7,k3` picks families
+  (default: all).
 - forward: the r05 weights (`--weights`, by default the checkout's) in
   nano coc_small at 512^2, bf16; CUDA-event ms per forward at batch 8 and
   32, 5 repeats of 10 forwards.
+- bits: K7's output and assignment and K7b's outputs and assignment at the
+  four stochastic-depth shapes, batch 16, f32 and bf16 (seeded inputs);
+  `--save FILE` writes them, `--compare FILE` (from another checkout)
+  prints per tensor whether the bits are equal and how many elements
+  differ.
 """
 from __future__ import annotations
 
@@ -183,11 +197,13 @@ def timing(dev, emit):
         emit(rec)
 
 
-def time_bwd(dev, emit, batch=16, only=("k6", "k5", "k7")):
+def time_bwd(dev, emit, batch=16, only=("k6", "k5", "k7", "k3"), weights=R05):
     from asy_vrnet_tpu_torch.ops import kernels
 
     paths = getattr(block, "PATHS", {})
     step = {}  # per kernel: the sums over shapes of calls x ms
+    if "k3" in only:
+        _time_simota(dev, emit, batch, step, weights)
     if "k5" in only:
         _time_mlp_bwd(dev, emit, batch, step)
     if "k7" in only:
@@ -319,6 +335,118 @@ def _time_cluster(dev, emit, batch, step):
             _add_step(step, k, rec, calls)
 
 
+SIMOTA_KERNELS = ("simota_prep_kernel", "simota_rows_kernel", "simota_resolve_kernel")
+
+
+def _simota_inputs(dev, batch, weights):
+    """{input name: the 8 tensor arguments of `simota_assign_batched`}: the
+    step's data (the train step's first batch through the r05 head, sliced
+    as `yolox_loss` slices `decode_for_loss`'s tensor) and chip_smoke.py's
+    phase-6 probe (contiguous, noised logits, 0/1/7/100 GTs)."""
+    from asy_vrnet_tpu_torch.config import ModelConfig
+    from asy_vrnet_tpu_torch.data.synthetic import make_batch
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.ops.boxes import decode_for_loss
+
+    cfg = ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+                      input_size=(512, 512), seg_signed_logits=True)
+    model = create_model(cfg, device=dev, weights=weights)
+
+    def head(bt):
+        with torch.no_grad():
+            det, _ = model(torch.from_numpy(bt["image"]).to(dev),
+                           torch.from_numpy(bt["radar"]).to(dev))
+            outs, grids, svec = decode_for_loss(det, (8, 16, 32))
+        return outs.float(), grids, svec
+
+    out = {}
+    bt = make_batch(np.random.default_rng(70), batch, (512, 512), max_boxes=100)
+    model.train()
+    outs, grids, svec = head(bt)
+    gt = [torch.from_numpy(bt[k]).to(dev) for k in ("gt_boxes", "gt_classes", "gt_valid")]
+    out["step"] = [outs[..., :4], outs[..., 5:], outs[..., 4], *gt, grids, svec]
+    model.eval()
+    rng = np.random.default_rng(6)
+    outs, grids, svec = head(make_batch(rng, batch, (512, 512), max_boxes=100))
+    noise = torch.from_numpy(rng.normal(0, 0.5, outs[..., 4:].shape).astype(np.float32)).to(dev)
+    gb = np.zeros((batch, 100, 4), np.float32)
+    gv = np.zeros((batch, 100), bool)
+    for i, n in enumerate([0, 1, 7, 100] * (batch // 4)):
+        gb[i, :n] = np.concatenate([rng.uniform(32, 480, (n, 2)), rng.uniform(24, 160, (n, 2))],
+                                   -1)
+        gv[i, :n] = True
+    gc = rng.integers(0, cfg.num_classes, (batch, 100)).astype(np.int32)
+    out["probe"] = [outs[..., :4].contiguous(), (outs[..., 5:] + noise[..., 1:]).contiguous(),
+                    (outs[..., 4] + noise[..., 0]).contiguous(),
+                    *(torch.from_numpy(x).to(dev) for x in (gb, gc, gv)), grids, svec]
+    del model
+    return out
+
+
+def _time_simota(dev, emit, batch, step, weights):
+    """K3 per wrapper call on the step's data and on chip_smoke's probe."""
+    from asy_vrnet_tpu_torch.ops import simota_fused
+
+    for name, args in _simota_inputs(dev, batch, weights).items():
+        def fn(args=args):
+            return simota_fused.simota_assign_batched(*args)
+
+        _, dyn = simota_fused.simota_assign_batched(*args, return_dynamic_ks=True)
+        rows = _trace_rows(fn)
+        calls = sum(n for nm, (_, n) in rows.items() if SIMOTA_KERNELS[1] in nm)
+        rec = {"mode": "time-bwd", "kernel": "k3", "shape": name, "b": batch, "calls": 1,
+               "valid_rows": int(args[5].sum().item()), "dynamic_k_sum": int(dyn.sum().item())}
+        for k in SIMOTA_KERNELS:
+            rec[k.split("_")[1] + "_device_ms"] = _per_launch(rows, k)
+        ours = sum(ms for nm, (ms, _) in rows.items() if any(k in nm for k in SIMOTA_KERNELS))
+        other = sum(ms for nm, (ms, _) in rows.items()
+                    if not any(k in nm for k in SIMOTA_KERNELS))
+        rec.update(main_device_ms=ours / max(1e-9, calls),
+                   torch_device_ms=other / max(1e-9, calls),
+                   device_ops=sum(n for _, n in rows.values()) / max(1e-9, calls),
+                   device_op_names=sorted({nm[:60] for nm in rows}),
+                   events_ms=cuda_ms(fn, 20), host_us=_host_us(fn, calls=50))
+        ker, kdyn = simota_fused.simota_assign_batched(*args, return_dynamic_ks=True)
+        ref, rdyn = simota_fused.simota_assign_batched(*args, use_kernel=False,
+                                                       return_dynamic_ks=True)
+        both = ker.fg_mask & ref.fg_mask
+        rec.update(fg_agreement=(ker.fg_mask == ref.fg_mask).float().mean().item(),
+                   fg_mismatches=int((ker.fg_mask != ref.fg_mask).sum().item()),
+                   matched_equal=bool(torch.equal(ker.matched_gt[both], ref.matched_gt[both])),
+                   num_fg=[ker.num_fg.sum().item(), ref.num_fg.sum().item()],
+                   dynamic_k_agreement=(kdyn == rdyn).float().mean().item())
+        emit(rec)
+        if name == "step":
+            _add_step(step, "k3", rec, 1)
+
+
+def bits(dev, emit, save=None, compare=None, batch=16):
+    """K7's and K7b's outputs at CLUSTER_SHAPES (seeded): saved to `save`,
+    or held bit for bit against those `compare` holds."""
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+
+    names = ("k7_out", "k7_assign", "k7b_dfeat", "k7b_dvalue", "k7b_dab", "k7b_assign")
+    g = torch.Generator().manual_seed(4)
+    ab = torch.tensor([1.5, 0.2], device=dev)
+    out = {}
+    for (name, _, h, w, inner, heads, fold, _) in CLUSTER_SHAPES:
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        f32s = [torch.randn(batch, h, w, inner, generator=g) * sc for sc in (1.0, 1.0, 0.5)]
+        for dt in (torch.float32, torch.bfloat16):
+            feat, value, gy = (t.to(dev, dt) for t in f32s)
+            y, asg = cf.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
+            got = cf.cluster_mix_bwd(feat, value, gy, ab, return_assign=True, **kw)
+            out[f"{name} {str(dt)[6:]}"] = [t.cpu() for t in (y, asg, *got)]
+    if save:
+        torch.save(out, save)
+    if compare:
+        other = torch.load(compare)
+        for key, tensors in out.items():
+            emit({"mode": "bits", "shape": key, **{
+                n: {"equal": bool(torch.equal(a, b)), "differ": int((a != b).sum().item())}
+                for n, a, b in zip(names, tensors, other[key])}})
+
+
 def forward(dev, emit, weights=R05):
     from asy_vrnet_tpu_torch.config import ModelConfig
     from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
@@ -338,11 +466,14 @@ def forward(dev, emit, weights=R05):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("check", "time", "time-bwd", "forward"))
+    ap.add_argument("mode", choices=("check", "time", "time-bwd", "forward", "bits"))
     ap.add_argument("--tag", default=os.path.basename(os.getcwd()))
-    ap.add_argument("--weights", default=R05, help="forward: the r05 weights (.npz)")
-    ap.add_argument("--only", default="k6,k5,k7",
-                    help="time-bwd: the kernel families to time (k6, k5, k7)")
+    ap.add_argument("--weights", default=R05,
+                    help="forward, time-bwd k3: the r05 weights (.npz)")
+    ap.add_argument("--only", default="k6,k5,k7,k3",
+                    help="time-bwd: the kernel families to time (k6, k5, k7, k3)")
+    ap.add_argument("--save", help="bits: write K7's and K7b's outputs to this file")
+    ap.add_argument("--compare", help="bits: hold them against this file's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("ab_serving measures the card: no CUDA device")
@@ -356,7 +487,9 @@ def main(argv=None):
     if args.mode == "forward":
         forward(dev, emit, args.weights)
     elif args.mode == "time-bwd":
-        time_bwd(dev, emit, only=tuple(args.only.split(",")))
+        time_bwd(dev, emit, only=tuple(args.only.split(",")), weights=args.weights)
+    elif args.mode == "bits":
+        bits(dev, emit, args.save, args.compare)
     else:
         {"check": check, "time": timing}[args.mode](dev, emit)
 

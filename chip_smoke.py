@@ -32,6 +32,9 @@ Phases (each raises on failure; nothing is caught):
      SimOTA kernel against its twin at B = 16, A = 5376, G = 100 with 0, 1, 7
      and 100 valid GTs, on the r05 model's head outputs plus seeded noise, and
      on a constructed case with duplicated GT boxes and duplicated anchors;
+     the same call on the loss's strided views of one (B, A, 5 + C) tensor
+     gives the same bits in at most 3 device operations (its three kernels,
+     each timed in a profiler trace);
   7. kernels, block backward at the train batch: at the 7 ClusterBlock
      shapes with batch 16, bf16 and f32, K2's residual pack (winning cosine
      and proposal per (token, head), raw and mixed centers) against the
@@ -56,8 +59,9 @@ Phases (each raises on failure; nothing is caught):
      stochastic-depth step gives them, batch 16, f32 and bf16:
      (16,128,128,128) fold 8 heads 4, (16,64,64,128) fold 4 heads 4,
      (16,32,32,256) fold 2 heads 8, (16,16,16,256) fold 1 heads 8; K7's and
-     K7b's assignment outputs equal; two runs of each give equal bits;
-     both on their fast instantiation (`cluster_fused.PATHS`); times, twin
+     K7b's assignment outputs equal, and their mixed centers; two runs of
+     each give equal bits; both on their fast instantiation
+     (`cluster_fused.PATHS`); times (events, and a profiler trace), twin
      times, bounds and a `[geometry ...]` line per shape for each (CTAs,
      CTAs per SM, registers, shared memory, tiles staged);
   9. train path, fused blocks: r05 weights, `create_train_state`, 5 steps
@@ -383,6 +387,28 @@ def device_ms(fn, kernel, iters, warmup=3):
     return sum(ms for ms, _ in rows) / count, tries
 
 
+def trace_table(fn, iters, warmup=3):
+    """{kernel name: (device ms, launches) per fn() call} and the device
+    operations per call, from one profiler trace of `iters` calls; the calls
+    are counted by the first name's launches (a trace may hold one sweep
+    fewer than it ran)."""
+    import torch
+
+    from asy_vrnet_tpu_torch.utils.profiling import kernel_table, traced
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        traced(lambda: [fn() for _ in range(iters)], d, on_card=True)
+        rows = kernel_table(d, iters)
+    out = {}
+    for (name, _), (ms, n) in rows.items():
+        t, k = out.get(name, (0.0, 0.0))
+        out[name] = (t + ms, k + n)
+    return out, sum(n for _, n in out.values())
+
+
 def rel_diff(a, b):
     return abs(a - b) / max(abs(b), 1e-12)
 
@@ -511,8 +537,9 @@ def check_cluster_mix(dev):
     from asy_vrnet_tpu_torch.ops import kernels
     from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
 
-    stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "plain_ms": 0.0,
-                 "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0} for k in CLUSTER_KERNELS}
+    stats = {k: {"max_abs_err": 0.0, "per_shape": [], "ms": 0.0, "device_ms": 0.0,
+                 "plain_ms": 0.0, "bound_ms": 0.0, "flops_ms": 0.0, "bytes_ms": 0.0}
+             for k in CLUSTER_KERNELS}
     agreement = []
     g = torch.Generator().manual_seed(4)
     ab = torch.tensor([1.5, 0.2], device=dev)
@@ -545,6 +572,17 @@ def check_cluster_mix(dev):
             torch.cuda.synchronize()
             check(all(torch.equal(a, r) for a, r in zip(got[:3], again)), f"K7b bits {tag}")
             check(torch.equal(got[3], asg), f"K7b's assignment is K7's {tag}")
+            # K7 and K7b compute the mixed centers with one function: the same bits
+            cen = [torch.full((b, heads, fold * fold, 4, inner // heads), float("nan"),
+                              device=dev) for _ in range(2)]
+            fast = kernels.cluster_mix_fast(inner // heads, 4)
+            kernels.cluster_mix(feat, value, ab, torch.empty_like(feat), None, fast=fast,
+                                centers=cen[0], **kw)
+            kernels.cluster_mix_bwd(feat, value, gy, ab, torch.empty_like(feat),
+                                    torch.empty_like(feat), torch.empty_like(got[2]).new_empty(
+                                        (b * heads * fold * fold, 2)), None, fast=fast,
+                                    centers=cen[1], **kw)
+            check(torch.equal(cen[0], cen[1]), f"K7's mixed centers are K7b's {tag}")
             check((cf.PATHS["cluster_mix/fast"], cf.PATHS["cluster_mix_bwd/fast"])
                   == (on_fast[0] + 2, on_fast[1] + 2), f"K7, K7b fast path {tag}")
             want = cf.cluster_mix_bwd_plain(feat, value, gy, ab, assign=got[3], **kw)
@@ -579,14 +617,17 @@ def check_cluster_mix(dev):
                 fk = lambda: cf.cluster_mix_fwd(feat, value, ab, **kw)              # noqa: E731
                 fp = lambda: cf.cluster_mix_fused_plain(feat, value, ab, **kw)      # noqa: E731
             ms, pms = cuda_ms(fk, 20), cuda_ms(fp, 3, warmup=1)
+            dms, _ = device_ms(fk, kname + "_kernel", 20)
             flops, byts = cluster_mix_bounds(b, h, w, inner, 2, backward)
             bms, by = bound_ms(flops, byts, peak=PEAK_FLOPS_F32)
-            log(f"[time {kname} {name} bf16 ({b},{h},{w},{inner})] kernel {ms:.4f} ms, plain "
-                f"{pms:.4f} ms, bound {bms:.5f} ms ({by}), x{calls} per step")
+            log(f"[time {kname} {name} bf16 ({b},{h},{w},{inner})] kernel {ms:.4f} ms "
+                f"({dms:.4f} in a trace), plain {pms:.4f} ms, bound {bms:.5f} ms ({by}), "
+                f"x{calls} per step")
             st = stats[kname]
-            st["per_shape"].append({"shape": name, "ms": ms, "plain_ms": pms, "bound_ms": bms,
-                                    "bound_by": by, "calls_per_step": calls})
+            st["per_shape"].append({"shape": name, "ms": ms, "device_ms": dms, "plain_ms": pms,
+                                    "bound_ms": bms, "bound_by": by, "calls_per_step": calls})
             st["ms"] += calls * ms
+            st["device_ms"] += calls * dms
             st["plain_ms"] += calls * pms
             st["bound_ms"] += calls * bms
             st["flops_ms"] += calls * flops / PEAK_FLOPS_F32 * 1e3
@@ -1326,14 +1367,38 @@ def main() -> int:
     ms = cuda_ms(lambda: simota_fused.simota_assign_batched(*sim_args), 20)
     pms = cuda_ms(lambda: simota_fused.simota_assign_batched(*sim_args, use_kernel=False), 1,
                   warmup=1)
+    # the same call on the loss's strided views: per kernel by trace, device
+    # operations per call (the three kernels, nothing else), the geometry
+    full = torch.cat([pred_boxes, obj_logits[..., None], cls_logits], -1)
+    views = [full[..., :4], full[..., 5:], full[..., 4]] + sim_args[3:]
+    on_views = simota_fused.simota_assign_batched(*views)
+    on_copies = simota_fused.simota_assign_batched(*sim_args)
+    check(all(torch.equal(a, b) for a, b in zip(on_views, on_copies)),
+          "K3 on the loss's views gives the bits it gives on contiguous copies")
+    trace, ops = trace_table(lambda: simota_fused.simota_assign_batched(*views), 20)
+    per_call = {k: next(((ms_, n) for nm, (ms_, n) in trace.items() if k in nm), (0.0, 0.0))
+                for k in ("simota_prep_kernel", "simota_rows_kernel", "simota_resolve_kernel")}
+    calls = per_call["simota_rows_kernel"][1]
+    check(calls > 0 and ops / calls <= 3, f"K3's wrapper runs its three kernels only: {trace}")
+    k3_device = {k.split("_")[1]: ms_ / calls for k, (ms_, _) in per_call.items()}
+    vms = cuda_ms(lambda: simota_fused.simota_assign_batched(*views), 20)
+    log(f"[geometry simota_assign] prep and resolve {-(-n_anchor // 256)}x{TRAIN_BATCH} "
+        f"blocks, rows {TRAIN_BATCH}x{MAX_BOXES} blocks, 256 threads, candidate lists of "
+        f"{simota_fused.list_length(10)} (k 10)")
+    log(f"[time simota_assign views] device ms by trace: prep {k3_device['prep']:.4f}, rows "
+        f"{k3_device['rows']:.4f}, resolve {k3_device['resolve']:.4f}; "
+        f"{ops / calls:.1f} device operations a call; events {vms:.4f} ms")
     bms, by = bound_ms(*simota_bounds(TRAIN_BATCH, n_anchor, MAX_BOXES, cfg.num_classes, 10,
                                       valid_rows, dyn_sum), peak=PEAK_FLOPS_F32)
     log(f"[time simota_assign B=16 A={n_anchor} G={MAX_BOXES}, {valid_rows} valid rows, "
         f"dynamic-k sum {dyn_sum}] kernel {ms:.4f} ms, plain {pms:.4f} ms, bound "
         f"{bms:.5f} ms ({by})")
     train_stats["simota_assign"].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                                        max_abs_err=iou_err, fg_agreement=agree)
-    del sim_args, tie, outs, det16
+                                        max_abs_err=iou_err, fg_agreement=agree,
+                                        device_ms=sum(k3_device.values()),
+                                        device_ms_by_kernel=k3_device,
+                                        device_ops_per_call=ops / calls, views_ms=vms)
+    del sim_args, tie, outs, det16, full, views
 
     # ---- 7. block backward kernels vs twins at the train batch ----
     bwd_stats = {k: {"max_abs_err": 0.0, "per_shape": []} for k in BWD_KERNELS}
@@ -1739,17 +1804,18 @@ def main() -> int:
         f"{bwd_stats['mlp_block_bwd']['ms']:.4f} ms")
     for kname in TRAIN_KERNELS:
         st = train_stats[kname]
+        extra = {k: v for k, v in st.items() if k.startswith(("device_", "views_"))}
         report.append({"name": kname, "route": "cuda", **TRAIN_KERNELS[kname],
                        "launches": train_launches[kname], "max_abs_err": st["max_abs_err"],
                        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
-                       "bound_by": st["bound_by"], "library_ms": None})
+                       "bound_by": st["bound_by"], "library_ms": None, **extra})
     for kname in CLUSTER_KERNELS:
         st = cl_stats[kname]
         report.append({"name": kname, "route": "cuda", **CLUSTER_KERNELS[kname],
                        "launches": drop_launches[kname], "max_abs_err": st["max_abs_err"],
                        "ms": st["ms"], "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
                        "bound_by": st["bound_by"], "library_ms": None,
-                       "per_shape": st["per_shape"]})
+                       "device_ms": st["device_ms"], "per_shape": st["per_shape"]})
 
     # ---- 14. K2f-ablate: K2's prefixes against their twins, their times, the
     # attribution of K2's time; then the profiling tool's own path ----

@@ -479,6 +479,74 @@ def test_simota_kernel_matches_plain_on_random_inputs(dev):
     assert ref.num_fg.sum().item() > 100
 
 
+def _simota_views(args):
+    """The predictions as `yolox_loss` hands them over: strided views of one
+    (B, A, 5 + C) tensor."""
+    pred, cls, obj = args[:3]
+    full = torch.cat([pred, obj[..., None], cls], -1)
+    return [full[..., :4], full[..., 5:], full[..., 4]] + list(args[3:])
+
+
+def test_simota_kernel_reads_the_loss_views_in_place(dev):
+    """K3 on the loss's strided views, with gt_classes int64 and gt_valid
+    uint8, gives the bits it gives on contiguous int32 / bool copies."""
+    args = _simota_inputs(dev, [0, 1, 7, 100], seed=6)
+    views = _simota_views(args)
+    assert not views[0].is_contiguous() and not views[2].is_contiguous()
+    got, gdyn = simota_fused.simota_assign_batched(*views, return_dynamic_ks=True)
+    other = views[:4] + [views[4].long(), views[5].to(torch.uint8)] + views[6:]
+    alt, adyn = simota_fused.simota_assign_batched(*other, return_dynamic_ks=True)
+    want, wdyn = simota_fused.simota_assign_batched(*args, return_dynamic_ks=True)
+    torch.cuda.synchronize()
+    for res, dyn in ((got, gdyn), (alt, adyn)):
+        assert all(torch.equal(a, b) for a, b in zip(res, want)) and torch.equal(dyn, wdyn)
+    assert got.fg_mask.dtype == torch.bool and got.matched_gt.dtype == torch.int64
+    assert got.num_fg.dtype == torch.float32 and gdyn.dtype == torch.int32
+
+
+@pytest.mark.parametrize("k", [1, 10, 16])
+def test_simota_kernel_candidate_k_and_ragged_anchors(dev, k):
+    """K3 at candidate_k 1, 10 and 16 on 320^2 anchors (A = 2100, not a
+    multiple of the 256-thread block) against its twin: exact on the 0- and
+    1-GT images, otherwise as on random inputs."""
+    args = _simota_views(_simota_inputs(dev, [0, 1, 7, 30], seed=5, size=320))
+    assert args[0].shape[1] % 256
+    ker, kdyn = simota_fused.simota_assign_batched(*args, candidate_k=k,
+                                                   return_dynamic_ks=True)
+    torch.cuda.synchronize()
+    ref, rdyn = simota_fused.simota_assign_batched(*args, candidate_k=k, use_kernel=False,
+                                                   return_dynamic_ks=True)
+    for i in (0, 1):
+        assert torch.equal(ker.fg_mask[i], ref.fg_mask[i])
+        assert torch.equal(ker.matched_gt[i], ref.matched_gt[i])
+        assert torch.equal(kdyn[i], rdyn[i])
+    both = ker.fg_mask & ref.fg_mask
+    assert (ker.fg_mask == ref.fg_mask).float().mean().item() >= 0.999
+    assert torch.equal(ker.matched_gt[both], ref.matched_gt[both])
+    torch.testing.assert_close(ker.pred_iou[both], ref.pred_iou[both], rtol=0, atol=1e-5)
+    assert abs(ker.num_fg.sum().item() - ref.num_fg.sum().item()) <= max(
+        1.0, 0.01 * ref.num_fg.sum().item())
+    assert (kdyn == rdyn).float().mean().item() >= 0.99 and (kdyn <= k).all()
+    with pytest.raises(ValueError, match="candidate_k"):
+        simota_fused.simota_assign_batched(*args, candidate_k=17)
+
+
+def test_simota_wrapper_runs_three_device_operations(dev, tmp_path):
+    """One K3 wrapper call on the loss's views is its three kernels and
+    nothing else on the device (profiler trace)."""
+    from asy_vrnet_tpu_torch.utils.profiling import kernel_table, traced
+
+    args = _simota_views(_simota_inputs(dev, [3] * 4, seed=7))
+    simota_fused.simota_assign_batched(*args)
+    torch.cuda.synchronize()
+    traced(lambda: [simota_fused.simota_assign_batched(*args) for _ in range(5)],
+           str(tmp_path), on_card=True)
+    rows = kernel_table(str(tmp_path), 5)
+    calls = sum(n for (name, _), (_, n) in rows.items() if "simota_rows_kernel" in name)
+    assert calls > 0
+    assert sum(n for _, n in rows.values()) / calls <= 3, sorted(name for name, _ in rows)
+
+
 # ---------------------------------------------------------------------------
 # the block backward: K2's residual pack, K5 and K6 (same pack fed to the
 # kernel and to its twin, so a flipped bf16 assignment cannot enter)
@@ -917,6 +985,38 @@ def test_cluster_mix_bwd_kernel_matches_plain(dev, shape, dt):
     assert got[0].dtype == got[1].dtype == dt and got[2].dtype == torch.float32
     for name, a, w_ in zip(("dxn", "dvalue", "dab"), got[:3], want):
         _bwd_close("dxn" if name == "dvalue" else name, a, w_, dt)
+
+
+@pytest.mark.parametrize("shape", [CLUSTER_SHAPES[i] for i in (0, 3, 4, 6)],
+                         ids=[CLUSTER_SHAPES[i][0] for i in (0, 3, 4, 6)])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_cluster_mix_k7_and_k7b_share_their_mixed_centers(dev, shape, dt):
+    """K7 and K7b compute the mixed centers with one function
+    (`mixed_centers` in csrc/cluster_mix.cuh): both write the same bits
+    (every entry written: the buffers start as NaN), at stage 0, stage 3
+    (fast) and on the general path (D = 24), and they are the twin's
+    (agg + vc) / (count + 1) at K7's assignment (f32 within 1e-4 of
+    max |ref|; bf16 within 2%: rnd(sim) can land on the other bf16 side)."""
+    feat, value, gy, ab, kw = _cluster_setup(dev, shape, dt, 8)
+    _, b, h, w, inner, heads, fold, prop = shape
+    fast = kernels.cluster_mix_fast(inner // heads, prop * prop)
+    cen = [torch.full((b, heads, fold * fold, prop * prop, inner // heads), float("nan"),
+                      device=dev) for _ in range(2)]
+    out = torch.empty_like(feat)
+    asg = torch.empty((b, h, w, heads), dtype=torch.int8, device=dev)
+    kernels.cluster_mix(feat, value, ab, out, asg, fast=fast, centers=cen[0], **kw)
+    dab = torch.empty((b * heads * fold * fold, 2), device=dev)
+    kernels.cluster_mix_bwd(feat, value, gy, ab, torch.empty_like(feat), torch.empty_like(feat),
+                            dab, None, fast=fast, centers=cen[1], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cen[0], cen[1])
+    assert torch.equal(out, cluster_fused.cluster_mix_fwd(feat, value, ab, **kw))
+    p = cluster_fused._remat(feat, value, ab, heads, fold, fold, prop, prop, assign=asg)
+    rnd_sim = block._round(p["sim"], dt)
+    ref = (torch.einsum("bhrmn,bhrnd->bhrmd", rnd_sim, p["vf"]) + p["vc"]) / (p["counts"] + 1.0)
+    scale = ref.abs().max().item()
+    err = (cen[0] - ref).abs().max().item()
+    assert err <= (1e-4 * max(1.0, scale) if dt == torch.float32 else 0.02 * scale), err
 
 
 def test_cluster_mix_fused_gradients_on_card_match_cpu(dev):

@@ -15,7 +15,7 @@ import types
 import pytest
 import torch
 
-from asy_vrnet_tpu_torch.ops import block, kernels
+from asy_vrnet_tpu_torch.ops import block, kernels, simota_fused
 
 H100_SMS = 132
 # the ClusterBlocks of nano coc_small at 512^2: (name, H*W per sample, C,
@@ -303,3 +303,234 @@ def test_cluster_mix_lanes_cover_each_token_channel_once(tokens, d, fast):
         assert {n for n, _ in pairs[t]} == set(range(t // 8, tokens, 32))
     # a warp's 32 lanes take 4 consecutive tokens
     assert {pairs[t][0][0] for t in range(32)} == {0, 1, 2, 3}
+
+
+def _cluster_mix_stores(tid, tokens, head_dim, fast):
+    """K7's dispatch (csrc/cluster_mix.cu, phase D) as thread `tid` runs it
+    in one region: [(token, first channel, channels)] per store, a token's
+    4 channels in one store (fast) or one channel a store (general)."""
+    slot, lane = divmod(tid, 8)
+    if fast:
+        return [(n, 4 * lane, 4) for n in range(slot, tokens, 32)]
+    return [(n, d, 1) for n in range(slot, tokens, 32) for d in range(lane, head_dim, 8)]
+
+
+@pytest.mark.parametrize("shape, heads, fold, fast", [
+    ((2, 16, 16, 64), 2, 2, True), ((1, 16, 8, 128), 4, 1, True),
+    ((1, 16, 16, 48), 2, 2, False), ((2, 8, 8, 24), 2, 1, False)])
+def test_cluster_mix_dispatch_stores_cover_each_element_once(shape, heads, fold, fast):
+    """Every CTA (sample, region, head) of K7 stores each (token, channel)
+    of its region once, a token's NHWC offset formed once (`View::goff`):
+    over the grid, every element of the (B, H, W, C) output exactly once,
+    and on the fast path as 4-channel stores at 4-element alignment (8 or
+    16 bytes)."""
+    b, h, w, c = shape
+    d = c // heads
+    rh, rw = h // fold, w // fold
+    hits = [0] * (b * h * w * c)
+    for bb in range(b):
+        for r in range(fold * fold):
+            for hh in range(heads):
+                for tid in range(256):
+                    for n, d0, cnt in _cluster_mix_stores(tid, rh * rw, d, fast):
+                        row = (r // fold) * rh + n // rw
+                        col = (r % fold) * rw + n % rw
+                        off = ((bb * h + row) * w + col) * c + hh * d + d0
+                        assert not fast or off % 4 == 0
+                        for e in range(off, off + cnt):
+                            hits[e] += 1
+    assert hits == [1] * len(hits)
+
+
+def _f32(x):
+    import numpy as np
+
+    return np.float32(x)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_cluster_mix_scatter_sum_has_group_sum_bits(seed):
+    """K7/K7b's assignment sums a token's 4 cosines over its 8 lanes by a
+    reduce-scatter (`scatter_sum4` in csrc/cluster_mix.cuh): lanes 2m and
+    2m + 1 end with cosine m, bit for bit what the butterfly `group_sum`
+    gives every lane (the same pairs are added; a + b == b + a in IEEE)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for _ in range(200):
+        v = (rng.standard_normal((8, 4)) * 10.0 ** rng.integers(-3, 4, (8, 4))).astype(np.float32)
+
+        def shfl(vals, o):
+            return [vals[s ^ o] for s in range(8)]
+
+        g = [list(v[:, m]) for m in range(4)]          # group_sum of each value
+        for m in range(4):
+            for o in (4, 2, 1):
+                g[m] = [_f32(a + b) for a, b in zip(g[m], shfl(g[m], o))]
+        hi = [bool(s & 4) for s in range(8)]
+        h2 = [bool(s & 2) for s in range(8)]
+        send0 = [v[s, 0] if hi[s] else v[s, 2] for s in range(8)]
+        send1 = [v[s, 1] if hi[s] else v[s, 3] for s in range(8)]
+        b0 = [_f32((v[s, 2] if hi[s] else v[s, 0]) + shfl(send0, 4)[s]) for s in range(8)]
+        b1 = [_f32((v[s, 3] if hi[s] else v[s, 1]) + shfl(send1, 4)[s]) for s in range(8)]
+        keep = [b1[s] if h2[s] else b0[s] for s in range(8)]
+        send = [b0[s] if h2[s] else b1[s] for s in range(8)]
+        cc = [_f32(keep[s] + shfl(send, 2)[s]) for s in range(8)]
+        out = [_f32(cc[s] + shfl(cc, 1)[s]) for s in range(8)]
+        for s in range(8):
+            assert out[s].view(np.int32) == g[s >> 1][s].view(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# K3's rows kernel (csrc/simota_assign.cu): one sweep into per-thread sorted
+# lists, merged within each warp and then across the 8 warps, against the
+# plain twin's rounds (ops/simota.py: k rounds of a first-index arg-max of the
+# IoUs, then dynamic-k rounds of a first-index arg-min of the costs).
+# ---------------------------------------------------------------------------
+
+_FLT_MAX = 3.4028234663852886e38
+_BIG = 1e9
+
+
+def _to_int(x):
+    """f32 -> int32 as the card's truncating conversion: NaN 0, saturating."""
+    import math
+
+    if math.isnan(x):
+        return 0
+    return int(max(-2 ** 31, min(2 ** 31 - 1, math.trunc(max(-1e30, min(1e30, x))))))
+
+
+def _rounds_rows(ious, cost, k):
+    """The rounds: k rounds of a first-index arg-max of the candidate IoUs
+    (the pick zeroed; a scan from -FLT_MAX that finds no non-NaN value
+    reports -FLT_MAX at index A), summed in pick order; then dynamic-k
+    rounds of a first-index arg-min of the costs (the pick set to inf),
+    recorded below 1e9 / 2."""
+    import numpy as np
+
+    a_n = len(ious)
+    x = ious.copy()
+    s = np.float32(0.0)
+    for _ in range(k):                                    # -FLT_MAX twice is -inf
+        ok = x > -_FLT_MAX                                # NaN never wins
+        m, i = (np.float32(x[ok].max()), int(np.flatnonzero(ok & (x == x[ok].max()))[0])) \
+            if ok.any() else (np.float32(-_FLT_MAX), a_n)
+        if i < a_n:
+            x[i] = 0.0
+        with np.errstate(over="ignore"):
+            s = np.float32(s + m)
+    dyn = min(max(_to_int(float(s)), 1), k)
+    x = cost.copy()
+    picks = []
+    for _ in range(dyn):
+        ok = x < _FLT_MAX
+        if not ok.any():
+            continue
+        m = x[ok].min()
+        i = int(np.flatnonzero(ok & (x == m))[0])
+        x[i] = np.inf
+        if m < _BIG / 2:
+            picks.append(i)
+    return s, dyn, picks
+
+
+def _push(lst, x, a, desc):
+    """List::push: insert (x, a) behind equal values, keep the length."""
+    last = lst[-1][0]
+    if not (x > last if desc else x < last):              # also drops NaN
+        return
+    for j, (v, _) in enumerate(lst):
+        if x > v if desc else x < v:
+            lst.insert(j, (x, a))
+            lst.pop()
+            return
+
+
+def _merged_rows(ious, cost, k, threads=256):
+    """The rows kernel as a model: per-thread lists of kk (the first of 4,
+    8, 12, 16 that holds k) over anchors tid, tid + threads, ...; each
+    warp's k best by k rounds of a lane arg-best (the winning lane pops;
+    the IoUs are values only, equal ones broken by lane, the costs by
+    anchor); warp 0's k best of the warp lists the same way; the IoUs
+    summed in descending order, the first dynamic-k costs picked."""
+    import numpy as np
+
+    a_n = len(ious)
+    kk = simota_fused.list_length(k)
+    empty = {True: (-_FLT_MAX, a_n), False: (_FLT_MAX, a_n)}
+
+    def merge(lists, desc):
+        out = []
+        for _ in range(k):
+            def key(t):
+                v, i = lists[t][0]
+                return (-v if desc else v, t if desc else i)
+            lane = min(range(len(lists)), key=key)
+            out.append(lists[lane][0])
+            if desc or lists[lane][0][1] < a_n:
+                lists[lane] = lists[lane][1:] + [empty[desc]]
+        return out
+
+    result = {}
+    for desc, vals in ((True, ious), (False, cost)):
+        lists = [[empty[desc]] * kk for _ in range(threads)]
+        for t in range(threads):
+            for a in range(t, a_n, threads):
+                if desc or vals[a] < _BIG / 2:
+                    _push(lists[t], np.float32(vals[a]), a, desc)
+        warps = [merge(lists[w:w + 32], desc) for w in range(0, threads, 32)]
+        result[desc] = merge([wl + [empty[desc]] for wl in warps], desc)    # one warp
+    top, low = result[True], result[False]
+    none = np.float32(0.0 if top[0][0] > -_FLT_MAX else -_FLT_MAX)
+    s = np.float32(0.0)
+    for v, _ in top:
+        with np.errstate(over="ignore"):
+            s = np.float32(s + (np.float32(v) if v > -_FLT_MAX else none))
+    dyn = min(max(_to_int(float(s)), 1), k)
+    return s, dyn, [i for _, i in low[:dyn] if i < a_n]
+
+
+def _simota_row(rng, a_n, kind):
+    """A row's candidate IoUs and costs: many equal values, NaNs, big-M."""
+    import numpy as np
+
+    # IoUs: mostly 0, ~30 drawn from 20 values (ties; sums that round
+    # differently by order)
+    ious = np.zeros(a_n, np.float32)
+    hit = rng.random(a_n) < 0.05
+    ious[hit] = rng.choice(rng.random(20).astype(np.float32), int(hit.sum()))
+    # costs at the centre penalty an f32 ulp apart (ties), a few below it,
+    # and big-M entries
+    cost = np.float32(1e5) + rng.integers(0, 6, a_n).astype(np.float32) * np.float32(0.0078125)
+    cost[rng.random(a_n) < 0.1] = np.float32(rng.integers(1, 4) * 12.3)
+    cost[rng.random(a_n) < 0.3] = np.float32(1e9 + 1e5)
+    if kind == "nan":
+        ious[rng.random(a_n) < 0.2] = np.nan
+        cost[rng.random(a_n) < 0.2] = np.nan
+    elif kind == "all_nan":
+        ious[:] = np.nan
+    elif kind == "few":                                   # fewer non-NaN IoUs than k
+        ious[:] = np.nan
+        ious[rng.integers(0, a_n, 2)] = np.float32(0.625)
+    return ious.astype(np.float32), cost.astype(np.float32)
+
+
+@pytest.mark.parametrize("k", range(1, 17))
+def test_simota_rows_merge_equals_the_rounds(k):
+    """The one-pass rows kernel gives, for every k it takes (1..16), the
+    rounds' dynamic k from the same f32 IoU sum bit for bit (descending
+    order), and the rounds' picks, which are a stable argsort's first
+    dynamic-k below the big-M."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + k)
+    for kind in ("ties", "nan", "all_nan", "few"):
+        ious, cost = _simota_row(rng, 1300, kind)
+        s_ref, dyn_ref, picks_ref = _rounds_rows(ious, cost, k)
+        s, dyn, picks = _merged_rows(ious, cost, k)
+        assert s.view(np.int32) == s_ref.view(np.int32), kind
+        assert dyn == dyn_ref and picks == picks_ref, kind
+        order = [int(i) for i in np.argsort(cost, kind="stable")
+                 if not np.isnan(cost[i]) and cost[i] < _BIG / 2]
+        assert picks == order[:dyn], kind
