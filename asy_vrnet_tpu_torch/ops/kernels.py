@@ -59,8 +59,8 @@ _SIGS = {
     "mlp_block_bwd": [_P] * 9 + [_I] * 8 + [_P],
     "cluster_mix": [_P] * 6 + [_I] * 10 + [_P],
     "cluster_mix_bwd": [_P] * 9 + [_I] * 10 + [_P],
-    "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I, _P],
-    "seg_loss_dlogits": [_P] * 5 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    "seg_loss_sums": [_P] * 4 + [_I] * 2 + [_F] * 3 + [_I] * 2 + [_F] * 4 + [_I] * 2 + [_P],
+    "seg_loss_dlogits": [_P] * 6 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_F] * 2 + [_I] * 2 + [_P],
     "simota_assign": [_P] * 3 + [_LL] * 6 + [_P, _P, _I] + [_P] * 12 + [_I] * 4 + [_F, _I, _P],
 }
 # element types each source is instantiated for (entry = "<source>_<suffix>")
@@ -76,7 +76,9 @@ _EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 8, _I),
           "mlp_block_bwd": {"mlp_block_bwd_info": ([_I] * 10 + [_P], _I),
                             "mlp_block_bwd_geometry": ([_I] * 4 + [_P], _I)},
           "cluster_mix": {"cluster_mix_info": ([_I] * 10 + [_P], _I)},
-          "cluster_mix_bwd": {"cluster_mix_bwd_info": ([_I] * 10 + [_P], _I)}}
+          "cluster_mix_bwd": {"cluster_mix_bwd_info": ([_I] * 10 + [_P], _I)},
+          "seg_loss_sums": {"seg_loss_sums_info": ([_I] * 3 + [_P], _I)},
+          "seg_loss_dlogits": {"seg_loss_dlogits_info": ([_I] * 3 + [_P], _I)}}
 
 
 def _nvcc() -> str:
@@ -549,20 +551,87 @@ def cluster_mix_info(dtype, shape, *, heads, fold_h, fold_w, proposal_h, proposa
         fast=bool(vals[4]), staged=bool(vals[5]))
 
 
-def seg_loss_sums(logits, target, weights, part, alpha, gamma, threshold) -> None:
-    """Launch the seg-loss forward kernel; tensors are checked by the caller.
-    `part` is (blocks, 4 + 5*C) f32: one row of partial sums per block."""
-    _call("seg_loss_sums", logits, _ptr(logits), _ptr(target), _ptr(weights),
-          _ptr(part), target.numel(), logits.shape[-1], alpha, gamma, threshold,
-          part.shape[0])
+# The seg-loss kernels (csrc/seg_loss.cuh): tiles of one pixel a thread
+# streamed through a ring of 2 to 4 slots.  K4b: CTAs of SEG_TILE threads
+# with a ring of at most SEG_RING_BYTES, SEG_CTAS_PER_SM[logits' itemsize]
+# of them an SM (the fastest of 1-4 on an H100: more for the lighter bf16
+# tiles).  K4: one CTA an SM, of SEG_WIDE threads with a ring of at most
+# SEG_WIDE_RING_BYTES at C = 9, of SEG_TILE threads on the generic path.
+SEG_TILE, SEG_RING_BYTES, SEG_STAGES = 256, 64 << 10, (2, 4)
+SEG_WIDE, SEG_WIDE_RING_BYTES = 768, 96 << 10
+SEG_CTAS_PER_SM = {2: 3, 4: 2}
 
 
-def seg_loss_dlogits(logits, target, weights, coef, out, alpha, gamma,
-                     use_focal) -> None:
-    """Launch the seg-loss backward kernel; tensors are checked by the caller."""
-    _call("seg_loss_dlogits", logits, _ptr(logits), _ptr(target), _ptr(weights),
-          _ptr(coef), _ptr(out), target.numel(), logits.shape[-1], alpha, gamma,
-          int(use_focal))
+def seg_sums_threads(c: int) -> int:
+    """Threads of a K4 CTA (and pixels of its tiles) for C classes."""
+    return SEG_WIDE if c == 9 else SEG_TILE
+
+
+def seg_ring_stages(c: int, itemsize: int, tile: int = SEG_TILE,
+                    budget: int = SEG_RING_BYTES) -> int:
+    """Ring slots of a seg-loss kernel for C classes of `itemsize`-byte
+    logits in tiles of `tile` pixels: as many slots (a tile's logits and
+    targets) as fit in `budget` bytes, between 2 and 4 (`ring_stages` in
+    the source)."""
+    lo, hi = SEG_STAGES
+    return max(lo, min(hi, budget // (tile * (c * itemsize + 4))))
+
+
+def seg_grid(backward: bool, npix: int, c: int, itemsize: int, sms: int) -> int:
+    """CTAs of a seg-loss launch over `npix` pixels on a card of `sms` SMs
+    (persistent: no more than there are tiles): K4b SEG_CTAS_PER_SM an SM,
+    K4 one."""
+    if backward:
+        return max(1, min(-(-npix // SEG_TILE), SEG_CTAS_PER_SM[itemsize] * sms))
+    return max(1, min(-(-npix // seg_sums_threads(c)), sms))
+
+
+def seg_loss_blocks(backward: bool, npix: int, c: int, itemsize: int,
+                    device: torch.device) -> int:
+    """`seg_grid` on this card (its SM count cached)."""
+    return seg_grid(backward, npix, c, itemsize, _sms(device))
+
+
+def seg_loss_info(backward: bool, dtype: torch.dtype, c: int, round_bf16: bool,
+                  device) -> dict:
+    """The seg-loss forward (or backward) kernel for C classes of `dtype`
+    logits: its dynamic shared memory (bytes), CTAs per SM, registers, ring
+    slots and threads per CTA."""
+    name = "seg_loss_dlogits" if backward else "seg_loss_sums"
+    out = torch.zeros(5, dtype=torch.int32)
+    with torch.cuda.device(device):
+        err = getattr(load(name), f"{name}_info")(
+            torch.empty((), dtype=dtype).element_size(), c, int(round_bf16), out.data_ptr())
+    if err:
+        raise RuntimeError(f"{name}_info: code {err}")
+    return dict(zip(("smem_bytes", "ctas_per_sm", "registers", "stages", "threads"),
+                    out.tolist()))
+
+
+def seg_loss_sums(logits, target, weights, out, hp, blocks, round_bf16=False) -> None:
+    """Launch the seg-loss forward kernel on `blocks` CTAs; tensors are
+    checked by the caller, `weights` may be None (every class 1).  `out`
+    (f32) receives rows (blocks, 4 + 5*C), the sums (4 + 5*C,), the loss and
+    f_score; `hp` holds the loss's hyper-parameters
+    (losses_seg_fused.SegHyper); `round_bf16` rounds f32 logits to bf16 on
+    load."""
+    _call("seg_loss_sums", logits, _ptr(logits), _ptr(target), _ptr(weights), _ptr(out),
+          target.numel(), logits.shape[-1], hp.alpha, hp.gamma, hp.threshold,
+          int(hp.use_focal), int(hp.use_dice), hp.dice_beta, hp.dice_smooth, hp.fs_beta,
+          hp.fs_smooth, blocks, int(round_bf16))
+
+
+def seg_loss_dlogits(logits, target, weights, sums, gloss, out, hp, blocks,
+                     round_bf16=False) -> None:
+    """Launch the seg-loss backward kernel on `blocks` CTAs: dlogits into
+    `out` from the forward's sums and the loss cotangent `gloss` (one f32 on
+    the device); tensors are checked by the caller, `weights` may be None.
+    `round_bf16` rounds f32 logits to bf16 on load and the results before
+    they are stored."""
+    _call("seg_loss_dlogits", logits, _ptr(logits), _ptr(target), _ptr(weights), _ptr(sums),
+          _ptr(gloss), _ptr(out), target.numel(), logits.shape[-1], hp.alpha, hp.gamma,
+          int(hp.use_focal), int(hp.use_dice), hp.dice_beta, hp.dice_smooth, blocks,
+          int(round_bf16))
 
 
 def simota_assign(pred_boxes, cls_logits, obj_logits, gt_boxes, gt_classes, gt_valid,

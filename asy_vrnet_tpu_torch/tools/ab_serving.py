@@ -44,14 +44,25 @@ prints one line per record, `AB {json}`, with the tag.
   each kernel and of the wrapper's other device operations, the device
   operations per call, events and host microseconds, and K3 against its
   plain twin on the same input (fg agreement, matched GT equal where both
-  are fg, num_fg, dynamic-k agreement).  Last, each kernel's per-step sums
-  (calls per train step x ms).  `--only k6,k5,k7,k3` picks families
-  (default: all).
+  are fg, num_fg, dynamic-k agreement).  Then K4 and K4b (the fused seg
+  loss) on chip_smoke.py's phase-6 inputs ((16, 512, 512, 9) bf16 logits,
+  randn * 2 from a generator seeded 6, ~10% ignored pixels), without and
+  with class weights: per call of the loss's forward
+  (`fused_seg_loss_and_fscore`), of its backward (`torch.autograd.grad`
+  through it) and of the train step's span (the model's bf16 NCHW seg map
+  through its NHWC f32 output, `train_step.seg_loss_and_fscore` and the
+  backward to that map, the casts included), the trace device ms of K4,
+  of K4b and of every other device operation, the operations per call,
+  events and host microseconds.  Last, each kernel's per-step sums (calls
+  per train step x ms).  `--only k6,k5,k7,k3,k4` picks families (default:
+  all).
 - forward: the r05 weights (`--weights`, by default the checkout's) in
   nano coc_small at 512^2, bf16; CUDA-event ms per forward at batch 8 and
   32, 5 repeats of 10 forwards.
 - bits: K7's output and assignment and K7b's outputs and assignment at the
-  four stochastic-depth shapes, batch 16, f32 and bf16 (seeded inputs);
+  four stochastic-depth shapes, batch 16, f32 and bf16 (seeded inputs), and
+  the fused seg loss's value, f_score and d logits (K4, K4b) on the k4
+  inputs, f32 and bf16, without and with class weights;
   `--save FILE` writes them, `--compare FILE` (from another checkout)
   prints per tensor whether the bits are equal and how many elements
   differ.
@@ -197,11 +208,13 @@ def timing(dev, emit):
         emit(rec)
 
 
-def time_bwd(dev, emit, batch=16, only=("k6", "k5", "k7", "k3"), weights=R05):
+def time_bwd(dev, emit, batch=16, only=("k6", "k5", "k7", "k3", "k4"), weights=R05):
     from asy_vrnet_tpu_torch.ops import kernels
 
     paths = getattr(block, "PATHS", {})
     step = {}  # per kernel: the sums over shapes of calls x ms
+    if "k4" in only:
+        _time_seg(dev, emit, batch, step)
     if "k3" in only:
         _time_simota(dev, emit, batch, step, weights)
     if "k5" in only:
@@ -420,9 +433,105 @@ def _time_simota(dev, emit, batch, step, weights):
             _add_step(step, "k3", rec, 1)
 
 
+SEG_KERNELS = ("seg_loss_sums", "seg_loss_dlogits")
+
+
+def _seg_inputs(dev, batch, dtype=torch.bfloat16):
+    """chip_smoke.py's phase-6 seg-loss inputs: (B, 512, 512, 9) logits
+    (randn * 2, generator seeded 6) in `dtype`, the int32 target with ~10%
+    ignored pixels, and the class weights {"plain": None, "weighted":
+    linspace(0.5, 2, 9)}."""
+    c = 9
+    gen = torch.Generator().manual_seed(6)
+    logits = torch.randn(batch, 512, 512, c, generator=gen) * 2
+    target = torch.randint(0, c, (batch, 512, 512), generator=gen, dtype=torch.int32)
+    target[torch.rand(target.shape, generator=gen) < 0.1] = c
+    weights = {"plain": None, "weighted": torch.linspace(0.5, 2.0, c).to(dev)}
+    return logits.to(dev, dtype), target.to(dev), weights
+
+
+def _seg_calls(dev, batch):
+    """{(call, weights): fn} of the k4 family (see the module's docstring)."""
+    from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.ops.losses_seg_fused import fused_seg_loss_and_fscore
+    from asy_vrnet_tpu_torch.train import train_step
+
+    logits, target, weights = _seg_inputs(dev, batch)
+    one = torch.ones((), device=dev)
+    # the decoder's bf16 map as the model holds it: NCHW, channels_last
+    seg_map = logits.permute(0, 3, 1, 2).detach().requires_grad_(True)
+    out = {}
+    for wname, w in weights.items():
+        cfg = Config(model=ModelConfig(phi="nano", variant="coc_small",
+                                       compute_dtype="bfloat16", input_size=(512, 512)),
+                     loss=LossConfig(use_pallas_seg=True, cls_balance_weights=None if w is None
+                                     else tuple(w.tolist())))
+        lg = logits.detach().requires_grad_(True)
+        loss, _ = fused_seg_loss_and_fscore(lg, target, w, 9, use_kernel=True)
+
+        def fwd(w=w):
+            return fused_seg_loss_and_fscore(logits, target, w, 9, use_kernel=True)
+
+        def bwd(loss=loss, lg=lg):
+            return torch.autograd.grad(loss, lg, one, retain_graph=True)
+
+        def span(cfg=cfg):
+            # the model's output cast (models/efficient_vrnet.py: NHWC, f32),
+            # the step's seg loss, and the backward to the decoder's map
+            loss, _ = train_step.seg_loss_and_fscore(
+                cfg, seg_map.permute(0, 2, 3, 1).float(), {"seg_target": target})
+            return torch.autograd.grad(loss, seg_map, one)
+
+        out.update({("forward", wname): fwd, ("backward", wname): bwd,
+                    ("step span", wname): span})
+    return out
+
+
+def _time_seg(dev, emit, batch, step):
+    """K4 and K4b per call: the loss's forward, its backward and the train
+    step's span from the model's seg output to its gradient."""
+    for (call, wname), fn in _seg_calls(dev, batch).items():
+        rows = _trace_rows(fn)
+        calls = max(sum(n for nm, (_, n) in rows.items() if k in nm) for k in SEG_KERNELS)
+        rec = {"mode": "time-bwd", "kernel": "k4", "shape": f"{call} {wname}", "b": batch,
+               "calls": 1}
+        for k in SEG_KERNELS:
+            rec[f"{k}_device_ms"] = sum(ms for nm, (ms, _) in rows.items() if k in nm) / calls
+        other = {nm: v for nm, v in rows.items() if not any(k in nm for k in SEG_KERNELS)}
+        rec.update(other_device_ms=sum(ms for ms, _ in other.values()) / calls,
+                   other_ops=sum(n for _, n in other.values()) / calls,
+                   device_ops=sum(n for _, n in rows.values()) / calls,
+                   device_op_names=sorted({nm[:60] for nm in rows}),
+                   events_ms=cuda_ms(fn, 20), host_us=_host_us(fn, calls=50))
+        emit(rec)
+        if wname == "plain" and call != "step span":
+            _add_step(step, "k4" if call == "forward" else "k4b", dict(rec, main_device_ms=sum(
+                rec[f"{k}_device_ms"] for k in SEG_KERNELS),
+                torch_device_ms=rec["other_device_ms"]), 1)
+
+
+def _seg_bits(dev, batch):
+    """{key: {name: tensor}}: the fused seg loss's value, f_score and d
+    logits (focal + dice) on the k4 inputs, f32 and bf16."""
+    from asy_vrnet_tpu_torch.ops.losses_seg_fused import fused_seg_loss_and_fscore
+
+    out = {}
+    for dt in (torch.float32, torch.bfloat16):
+        logits, target, weights = _seg_inputs(dev, batch, dt)
+        for wname, w in weights.items():
+            lg = logits.detach().requires_grad_(True)
+            loss, fs = fused_seg_loss_and_fscore(lg, target, w, 9, use_kernel=True)
+            (grad,) = torch.autograd.grad(loss, lg)
+            out[f"seg {wname} {str(dt)[6:]}"] = {
+                "k4_loss": loss.detach().cpu(), "k4_fscore": fs.detach().cpu(),
+                "k4b_dlogits": grad.cpu()}
+    return out
+
+
 def bits(dev, emit, save=None, compare=None, batch=16):
-    """K7's and K7b's outputs at CLUSTER_SHAPES (seeded): saved to `save`,
-    or held bit for bit against those `compare` holds."""
+    """K7's and K7b's outputs at CLUSTER_SHAPES (seeded) and the fused seg
+    loss's (`_seg_bits`): saved to `save`, or held bit for bit against
+    those `compare` holds."""
     from asy_vrnet_tpu_torch.ops import cluster_fused as cf
 
     names = ("k7_out", "k7_assign", "k7b_dfeat", "k7b_dvalue", "k7b_dab", "k7b_assign")
@@ -436,16 +545,18 @@ def bits(dev, emit, save=None, compare=None, batch=16):
             feat, value, gy = (t.to(dev, dt) for t in f32s)
             y, asg = cf.cluster_mix_fwd(feat, value, ab, return_assign=True, **kw)
             got = cf.cluster_mix_bwd(feat, value, gy, ab, return_assign=True, **kw)
-            out[f"{name} {str(dt)[6:]}"] = [t.cpu() for t in (y, asg, *got)]
+            out[f"{name} {str(dt)[6:]}"] = dict(zip(names, (t.cpu() for t in (y, asg, *got))))
+    out.update(_seg_bits(dev, batch))
     if save:
         torch.save(out, save)
     if compare:
         other = torch.load(compare)
         for key, tensors in out.items():
             emit({"mode": "bits", "shape": key, **{
-                n: {"equal": bool(torch.equal(a, b)), "differ": int((a != b).sum().item())}
-                for n, a, b in zip(names, tensors, other[key])}})
-
+                n: {"equal": bool(torch.equal(a, other[key][n])),
+                    "differ": int((a != other[key][n]).sum().item()),
+                    "max_abs": (a.float() - other[key][n].float()).abs().max().item()}
+                for n, a in tensors.items()}})
 
 def forward(dev, emit, weights=R05):
     from asy_vrnet_tpu_torch.config import ModelConfig
@@ -470,9 +581,10 @@ def main(argv=None):
     ap.add_argument("--tag", default=os.path.basename(os.getcwd()))
     ap.add_argument("--weights", default=R05,
                     help="forward, time-bwd k3: the r05 weights (.npz)")
-    ap.add_argument("--only", default="k6,k5,k7,k3",
-                    help="time-bwd: the kernel families to time (k6, k5, k7, k3)")
-    ap.add_argument("--save", help="bits: write K7's and K7b's outputs to this file")
+    ap.add_argument("--only", default="k6,k5,k7,k3,k4",
+                    help="time-bwd: the kernel families to time (k6, k5, k7, k3, k4)")
+    ap.add_argument("--save", help="bits: write K7's, K7b's, K4's and K4b's outputs to "
+                                   "this file")
     ap.add_argument("--compare", help="bits: hold them against this file's")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

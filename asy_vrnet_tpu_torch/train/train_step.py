@@ -5,7 +5,7 @@ One step: forward in train mode (both tasks), seg loss + f_score, SimOTA +
 YOLOX loss, multitask combine, backward, optimiser update, ramped EMA.
 Parameters are f32 and are cast at each call, so gradients arrive in f32 and
 bf16 compute needs no autocast and no GradScaler.  Losses run in f32, except
-that the fused seg loss reads the model's bf16 logits.  The step updates the
+that the fused seg loss reads the model's logits as bf16.  The step updates the
 state in place and returns it.
 
 Batch layout (numpy arrays or tensors, fixed shapes):
@@ -67,9 +67,10 @@ def segmentation_loss(cfg: Config, seg_logits, seg_target, seg_onehot):
 def seg_loss_and_fscore(cfg: Config, seg_logits, batch):
     """(loss_seg, f_score).  `LossConfig.use_pallas_seg` (the name is shared
     with the JAX package's configs) means here "use the fused seg-loss
-    kernel": None = on CUDA tensors only, True/False force.  The fused path
-    reads bf16 logits under a bf16 compute dtype: the same values the model
-    computed before its f32 cast."""
+    kernel": None = on CUDA tensors only, True/False force.  Under a bf16
+    compute dtype the fused path reads the model's f32 output as bf16 (the
+    values the model computed before its f32 cast) and returns a gradient
+    that holds bf16 values, with no cast of the logits either way."""
     lcfg = cfg.loss
     use_fused = lcfg.use_pallas_seg
     if use_fused is None:
@@ -78,13 +79,12 @@ def seg_loss_and_fscore(cfg: Config, seg_logits, batch):
         onehot = seg_onehot_of(batch, cfg.model.num_seg_classes)
         loss = segmentation_loss(cfg, seg_logits, batch["seg_target"], onehot)
         return loss, f_score(seg_logits, onehot)
-    if cfg.model.compute_dtype == "bfloat16":
-        seg_logits = seg_logits.to(torch.bfloat16)
     return fused_seg_loss_and_fscore(
         seg_logits, batch["seg_target"], _cls_weights(cfg, seg_logits.device),
         cfg.model.num_seg_classes, use_focal=lcfg.focal_loss,
         focal_alpha=lcfg.focal_alpha, focal_gamma=lcfg.focal_gamma,
-        use_dice=lcfg.dice_loss, use_kernel=True)
+        use_dice=lcfg.dice_loss, use_kernel=True,
+        round_bf16=cfg.model.compute_dtype == "bfloat16")
 
 
 def detection_loss(cfg: Config, det_outputs, batch):

@@ -27,9 +27,14 @@ Phases (each raises on failure; nothing is caught):
      from the occupancy API, shared memory, registers, the path taken); the
      full forward at batch 8 and 32, and peak memory;
   6. kernels, training: the fused seg-loss forward and backward kernels
-     against their plain twins at (16, 512, 512, 9), bf16 and f32, focal+dice
-     and CE-only, with and without class weights, ~10% ignored pixels; the
-     SimOTA kernel against its twin at B = 16, A = 5376, G = 100 with 0, 1, 7
+     (K4, K4b) against their plain twins at (16, 512, 512, 9), bf16 and f32,
+     focal+dice and CE-only, with and without class weights, ~10% ignored
+     pixels, three K4 calls giving the same bits; the f32-in variant the
+     train step runs (the model's f32 output read as bf16) against the bf16
+     path bit for bit; partial last tiles (1 and 300 pixels) and C = 21 (the
+     generic instantiation); each kernel's time (events, trace), geometry,
+     and the train step's span from the model's seg output to its gradient
+     (device operations and ms by trace); the SimOTA kernel against its twin at B = 16, A = 5376, G = 100 with 0, 1, 7
      and 100 valid GTs, on the r05 model's head outputs plus seeded noise, and
      on a constructed case with duplicated GT boxes and duplicated anchors;
      the same call on the loss's strided views of one (B, A, 5 + C) tensor
@@ -138,9 +143,10 @@ Tolerances:
     cuDNN with TF32 off against the CPU's plain path through ~90 layers).
   seg-loss sums vs plain: rtol 1e-5 in f32 (1e-4 on bf16 logits; both read
     the same logits and compute in f32), thresholded counts within 8 pixels,
-    the loss within 1e-3 relative; two runs give equal bits.  dlogits: f32
-    max |diff| <= 1e-6 * max(1, max |dlogits|), bf16 within 2 bf16 ulps of
-    max |dlogits|.
+    the loss and f_score (computed in the kernel) within 1e-3 relative; three
+    runs give equal bits.  dlogits: f32 max |diff| <= 1e-6 * max(1, max
+    |dlogits|), bf16 within 2 bf16 ulps of max |dlogits|.  The f32-in
+    variant: the bf16 path's bits exactly.
   SimOTA vs plain: exact on the constructed ties and on images with 0 or 1
     GT; otherwise fg agreement >= 99.9% of anchors, matched GT equal where
     both are fg, IoU atol 1e-5, num_fg within 1% (libm's last ulp can flip a
@@ -974,6 +980,156 @@ def check_ablation(dev):
     return stats, attribution
 
 
+def check_seg_loss(dev):
+    """Phase 6's seg-loss part: K4 and K4b against their twins at the train
+    step's (16, 512, 512, 9) on the bf16 and f32 paths, without and with
+    class weights, focal+dice and CE (three calls in a row give the same
+    bits); the f32-in variant the train step runs (`round_bf16`) against the
+    bf16 path bit for bit; partial last tiles and C = 21 (the generic path);
+    each kernel's time on the main path's variant (events, trace), its
+    twin's, its bound and geometry, and the bf16 variant's beside it; and the
+    train step's span from the model's seg output to its gradient (device
+    operations and ms by trace).  -> {kernel: stats for the kernels line}."""
+    import torch
+
+    from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.ops import kernels
+    from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
+    from asy_vrnet_tpu_torch.train import train_step
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
+
+    f32, b16 = torch.float32, torch.bfloat16
+    npix, c9 = TRAIN_BATCH * 512 * 512, SEG_CLASSES
+    gen = torch.Generator().manual_seed(6)
+    seg32 = torch.randn(TRAIN_BATCH, 512, 512, c9, generator=gen) * 2
+    seg_t = torch.randint(0, c9, (TRAIN_BATCH, 512, 512), generator=gen, dtype=torch.int32)
+    seg_t[torch.rand(seg_t.shape, generator=gen) < 0.1] = c9        # ~10% ignored
+    seg_t = seg_t.to(dev)
+    class_w = {"weighted": torch.linspace(0.5, 2.0, c9).to(dev), "plain": None}
+    modes = {"focal+dice": segf.SegHyper(), "ce": segf.SegHyper(use_focal=False, use_dice=False)}
+    stats = {k: {"max_abs_err": 0.0} for k in ("seg_loss_sums", "seg_loss_dlogits")}
+
+    def held(lg, tg, w, hp, tag, gloss, calls=3):
+        """Both kernels against their twins (the tolerances of the module's
+        docstring); K4 `calls` times, equal bits.  -> (|loss diff|, max
+        |dlogits diff|)."""
+        runs = [segf.seg_loss_sums(lg, tg, w, hp) for _ in range(calls)]
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for r in runs[1:] for a, b in zip(runs[0], r)),
+              "seg_loss_sums gives the same bits twice")
+        (acc, lk, fk), (ref, lp, fp) = runs[0], segf.seg_sums_plain(lg, tg, w, hp)
+        c = lg.shape[-1]
+        smooth, counts = slice(0, 4 + 3 * c), slice(4 + 3 * c, 4 + 5 * c)
+        rerr = ((acc - ref).abs() / ref.abs().clamp_min(1.0))[smooth].max().item()
+        cerr = (acc - ref).abs()[counts].max().item()
+        dk = segf.seg_loss_dlogits(lg, tg, w, ref, gloss, hp)
+        torch.cuda.synchronize()
+        dp = segf.seg_dlogits_plain(lg, tg, w, ref, gloss, hp)
+        derr = (dk.float() - dp.float()).abs().max().item()
+        dmax = dp.float().abs().max().item()
+        log(f"[check seg loss {tag}] sums max rel diff {rerr:.3e}, thresholded counts differ "
+            f"by <= {cerr:.0f} pixels; loss {lk.item():.6f} vs {lp.item():.6f}, f_score "
+            f"{fk.item():.6f} vs {fp.item():.6f}; dlogits (cotangent {gloss.item():.0f}) "
+            f"max|diff| {derr:.3e} max|dlogits| {dmax:.3e}")
+        check(rerr <= (1e-5 if lg.dtype == f32 else 1e-4) and cerr <= 8, "seg_loss_sums")
+        check(rel_diff(lk.item(), lp.item()) <= 1e-3 and rel_diff(fk.item(), fp.item()) <= 1e-3,
+              "seg loss value")
+        check(derr <= (1e-6 * max(1.0, dmax) if lg.dtype == f32 else 2 * bf16_ulp(dmax)),
+              "seg_loss_dlogits")
+        return abs(lk.item() - lp.item()), derr
+
+    gloss = torch.tensor(float(npix), device=dev)
+    for dt in (f32, b16):
+        lg = seg32.to(dev, dt)
+        for wname, w in class_w.items():
+            for mode, hp in modes.items():
+                lerr, derr = held(lg, seg_t, w, hp, f"{str(dt)[6:]} {wname} {mode}", gloss)
+                if dt == b16:
+                    stats["seg_loss_sums"]["max_abs_err"] = max(
+                        stats["seg_loss_sums"]["max_abs_err"], lerr)
+                    stats["seg_loss_dlogits"]["max_abs_err"] = max(
+                        stats["seg_loss_dlogits"]["max_abs_err"], derr)
+    # the train step's variant: the model's f32 output (an upcast of bf16)
+    # read as bf16, and an f32 input that is not bf16-exact
+    lg16 = seg32.to(dev, b16)
+    for wname, w in class_w.items():
+        want = segf.seg_loss_sums(lg16, seg_t, w, modes["focal+dice"])
+        want_dl = segf.seg_loss_dlogits(lg16, seg_t, w, want[0], gloss, modes["focal+dice"])
+        for xname, x in (("bf16-exact", lg16.float()), ("f32", seg32.to(dev))):
+            got = segf.seg_loss_sums(x, seg_t, w, modes["focal+dice"], round_bf16=True)
+            dl = segf.seg_loss_dlogits(x, seg_t, w, got[0], gloss, modes["focal+dice"],
+                                       round_bf16=True)
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(want, got))
+            same_dl = dl.dtype == f32 and torch.equal(dl, want_dl.float())
+            log(f"[check seg loss f32 in {wname} {xname}] sums, loss, f_score equal the bf16 "
+                f"path's bits: {same}; dlogits equal its upcast: {same_dl}")
+            check(same and same_dl, "the f32-in seg-loss kernels give the bf16 path's bits")
+    del lg16
+    # partial last tiles (npix 1 and 300) and the generic path (C = 21)
+    g7 = torch.Generator().manual_seed(7)
+    for shape, c in (((1, 1, 1), c9), ((1, 3, 100), c9), ((2, 37, 53), 21)):
+        l32 = torch.randn(*shape, c, generator=g7) * 2
+        tg = torch.randint(0, c + 1, shape, generator=g7, dtype=torch.int32).to(dev)
+        for dt in (f32, b16):
+            held(l32.to(dev, dt), tg, None, modes["focal+dice"],
+                 f"{str(dt)[6:]} {shape} C={c}", torch.tensor(float(tg.numel()), device=dev))
+
+    # times: the main path's variant (f32 in, read as bf16) in the kernels
+    # line, the bf16 variant beside it
+    hp, one = modes["focal+dice"], torch.tensor(1.0, device=dev)
+    for variant, x, rnd in (("f32 in", seg32.to(dev), True), ("bf16", seg32.to(dev, b16), False)):
+        acc = segf.seg_loss_sums(x, seg_t, None, hp, rnd)[0]
+        fns = {"seg_loss_sums": (
+                   lambda x=x, rnd=rnd: segf.seg_loss_sums(x, seg_t, None, hp, rnd),
+                   lambda x=x, rnd=rnd: segf.seg_sums_plain(x, seg_t, None, hp, rnd), False),
+               "seg_loss_dlogits": (
+                   lambda x=x, rnd=rnd, acc=acc: segf.seg_loss_dlogits(x, seg_t, None, acc, one,
+                                                                       hp, rnd),
+                   lambda x=x, rnd=rnd, acc=acc: segf.seg_dlogits_plain(x, seg_t, None, acc, one,
+                                                                        hp, rnd), True)}
+        for kname, (fk, fp, backward) in fns.items():
+            ms = cuda_ms(fk, 20)
+            dms, _ = device_ms(fk, kname + "_kernel", 20)
+            pms = cuda_ms(fp, 3, warmup=1)
+            bms, by = bound_ms(*seg_bounds(npix, c9, x.element_size(), backward),
+                               peak=PEAK_FLOPS_F32)
+            geo = kernels.seg_loss_info(backward, x.dtype, c9, rnd, dev)
+            geo["ctas"] = kernels.seg_loss_blocks(backward, npix, c9, x.element_size(), dev)
+            log(f"[time {kname} {variant} (16,512,512,9)] kernel {ms:.4f} ms events, "
+                f"{dms:.4f} ms trace, plain {pms:.4f} ms, bound {bms:.5f} ms ({by})")
+            log(f"[geometry {kname} {variant}] CTAs {geo['ctas']} of {geo['threads']} threads, "
+                f"CTAs/SM {geo['ctas_per_sm']}, registers {geo['registers']}, shared memory "
+                f"{geo['smem_bytes']} B, ring slots {geo['stages']}")
+            if rnd:
+                stats[kname].update(ms=ms, device_ms=dms, plain_ms=pms, bound_ms=bms,
+                                    bound_by=by, device_geometry=geo)
+            else:
+                stats[kname].update(device_bf16_events_ms=ms, device_bf16_trace_ms=dms,
+                                    device_bf16_bound_ms=bms)
+        del x, acc, fns
+
+    # the train step's span: the model's NHWC f32 output of its bf16 map,
+    # the seg loss and the gradient back to that map
+    cfg = Config(model=ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+                                   input_size=(512, 512)),
+                 loss=LossConfig(use_pallas_seg=True))
+    seg_map = seg32.to(dev, b16).permute(0, 3, 1, 2).detach().requires_grad_(True)
+
+    def span():
+        loss, _ = train_step.seg_loss_and_fscore(cfg, seg_map.permute(0, 2, 3, 1).float(),
+                                                 {"seg_target": seg_t})
+        return torch.autograd.grad(loss, seg_map, one)
+
+    rows, ops = trace_table(span, 10)
+    log(f"[seg span] per train step: {ops:.0f} device ops, "
+        f"{sum(ms for ms, _ in rows.values()):.4f} device ms: " + ", ".join(
+            f"{name[:48]} {ms:.4f} x{n:.0f}" for name, (ms, n) in rows.items()))
+    stats["seg_loss_sums"]["device_span_ops"] = ops
+    stats["seg_loss_sums"]["device_span_ms"] = sum(ms for ms, _ in rows.values())
+    return stats
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1272,71 +1428,8 @@ def main() -> int:
 
 
     # ---- 6. kernels, training: seg loss (sums, dlogits) and SimOTA ----
-    f32 = torch.float32
-    npix, c9 = TRAIN_BATCH * 512 * 512, SEG_CLASSES
-    gen = torch.Generator().manual_seed(6)
-    seg32 = torch.randn(TRAIN_BATCH, 512, 512, c9, generator=gen) * 2
-    seg_t = torch.randint(0, c9, (TRAIN_BATCH, 512, 512), generator=gen, dtype=torch.int32)
-    seg_t[torch.rand(seg_t.shape, generator=gen) < 0.1] = c9        # ~10% ignored
-    seg_t = seg_t.to(dev)
-    class_w = {"weighted": torch.linspace(0.5, 2.0, c9).to(dev), "plain": torch.ones(c9).to(dev)}
     train_stats = {k: {"max_abs_err": 0.0} for k in TRAIN_KERNELS}
-    hyper = (0.5, 2.0, 0.5)                                          # alpha, gamma, threshold
-    for dt in (f32, torch.bfloat16):
-        lg = seg32.to(dev, dt)
-        for wname, w in class_w.items():
-            acc = segf.seg_loss_sums(lg, seg_t, w, *hyper)
-            again = segf.seg_loss_sums(lg, seg_t, w, *hyper)
-            torch.cuda.synchronize()
-            ref = segf.seg_sums_plain(lg, seg_t, w, *hyper)
-            check(bool(torch.equal(acc, again)), "seg_loss_sums gives the same bits twice")
-            smooth, counts = slice(0, 4 + 3 * c9), slice(4 + 3 * c9, 4 + 5 * c9)
-            rerr = ((acc - ref).abs() / ref.abs().clamp_min(1.0))[smooth].max().item()
-            cerr = (acc - ref).abs()[counts].max().item()
-            log(f"[check seg_loss_sums {str(dt)[6:]} {wname}] max rel diff of the sums "
-                f"{rerr:.3e}, thresholded counts differ by <= {cerr:.0f} pixels")
-            check(rerr <= (1e-5 if dt == f32 else 1e-4) and cerr <= 8, "seg_loss_sums")
-            for mode, use_focal, use_dice in (("focal+dice", True, True), ("ce", False, False)):
-                args = (c9, use_focal, use_dice, 1.0, 1e-5, 1.0, 1e-5)
-                (lk, fk), (lp, fp) = segf._losses_from_acc(acc, *args), \
-                    segf._losses_from_acc(ref, *args)
-                coef = segf._backward_coef(ref, torch.tensor(float(npix), device=dev), c9,
-                                           use_focal, use_dice, 1.0, 1e-5)
-                dk = segf.seg_loss_dlogits(lg, seg_t, w, coef, 0.5, 2.0, use_focal)
-                torch.cuda.synchronize()
-                dp = segf.seg_dlogits_plain(lg, seg_t, w, coef, 0.5, 2.0, use_focal)
-                derr = (dk.float() - dp.float()).abs().max().item()
-                dmax = dp.float().abs().max().item()
-                log(f"[check seg loss {str(dt)[6:]} {wname} {mode}] loss {lk.item():.6f} vs "
-                    f"{lp.item():.6f}, f_score {fk.item():.6f} vs {fp.item():.6f}; dlogits "
-                    f"(cotangent {npix}) max|diff| {derr:.3e} max|dlogits| {dmax:.3e}")
-                check(rel_diff(lk.item(), lp.item()) <= 1e-3 and rel_diff(fk.item(), fp.item()) <= 1e-3,
-                      "seg loss value")
-                check(derr <= (1e-6 * max(1.0, dmax) if dt == f32 else 2 * bf16_ulp(dmax)),
-                      "seg_loss_dlogits")
-                if dt == torch.bfloat16:
-                    train_stats["seg_loss_sums"]["max_abs_err"] = max(
-                        train_stats["seg_loss_sums"]["max_abs_err"], abs(lk.item() - lp.item()))
-                    train_stats["seg_loss_dlogits"]["max_abs_err"] = max(
-                        train_stats["seg_loss_dlogits"]["max_abs_err"], derr)
-    seg_bf16 = seg32.to(dev, torch.bfloat16)
-    w9 = class_w["plain"]
-    coef = segf._backward_coef(segf.seg_sums_plain(seg_bf16, seg_t, w9, *hyper),
-                               torch.tensor(1.0, device=dev), c9, True, True, 1.0, 1e-5)
-    seg_fns = {
-        "seg_loss_sums": (lambda: segf.seg_loss_sums(seg_bf16, seg_t, w9, *hyper),
-                          lambda: segf.seg_sums_plain(seg_bf16, seg_t, w9, *hyper), False),
-        "seg_loss_dlogits": (
-            lambda: segf.seg_loss_dlogits(seg_bf16, seg_t, w9, coef, 0.5, 2.0, True),
-            lambda: segf.seg_dlogits_plain(seg_bf16, seg_t, w9, coef, 0.5, 2.0, True), True),
-    }
-    for kname, (fk, fp, backward) in seg_fns.items():
-        ms, pms = cuda_ms(fk, 20), cuda_ms(fp, 3, warmup=1)
-        bms, by = bound_ms(*seg_bounds(npix, c9, 2, backward), peak=PEAK_FLOPS_F32)
-        log(f"[time {kname} bf16 (16,512,512,9)] kernel {ms:.4f} ms, plain {pms:.4f} ms, "
-            f"bound {bms:.5f} ms ({by})")
-        train_stats[kname].update(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by)
-    del seg32, seg_bf16, seg_fns
+    train_stats.update(check_seg_loss(dev))
 
     # SimOTA on the r05 head's outputs for seeded images, plus seeded noise
     rng6 = np.random.default_rng(6)

@@ -348,53 +348,174 @@ def _seg_inputs(dev, dt, shape=(16, 512, 512), c=9, seed=0, weighted=True):
     logits = (torch.randn(*shape, c, generator=g) * 2).to(dev, dt)
     target = torch.randint(0, c, shape, generator=g, dtype=torch.int32)
     target[torch.rand(shape, generator=g) < 0.1] = c             # ~10% ignored
-    w = torch.linspace(0.5, 2.0, c) if weighted else torch.ones(c)
-    return logits, target.to(dev), w.to(dev)
+    w = torch.linspace(0.5, 2.0, c).to(dev) if weighted else None   # None: every class 1
+    return logits, target.to(dev), w
+
+
+SEG = losses_seg_fused
+
+
+def _check_sums(acc, ref, dt, c):
+    """Sums against the twin's: rtol 1e-5 in f32, 1e-4 on bf16 logits (the
+    same f32 math, summed in another order), thresholded counts within 8
+    pixels (a probability at the threshold may land on the other side)."""
+    counts = slice(4 + 3 * c, 4 + 5 * c)                 # tp_f and sum_pred
+    rtol = 1e-5 if dt == torch.float32 else 1e-4
+    torch.testing.assert_close(acc[:4 + 3 * c], ref[:4 + 3 * c], rtol=rtol, atol=1e-3)
+    torch.testing.assert_close(acc[counts], ref[counts], rtol=0, atol=8)
+
+
+def _check_dlogits(dl, ref, dt, min_scale=1e-3):
+    """f32: max |diff| <= 1e-6 * max(1, max |ref|); bf16: 2 bf16 ulps of max |ref|."""
+    assert dl.dtype == ref.dtype and dl.shape == ref.shape
+    diff = (dl.float() - ref.float()).abs().max().item()
+    scale = ref.float().abs().max().item()
+    assert scale > min_scale
+    if dt == torch.float32:
+        assert diff <= 1e-6 * max(1.0, scale)
+    else:
+        assert diff <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
 
 
 @pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "plain"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_seg_loss_sums_kernel_matches_plain(dev, dt, weighted):
+    """K4 at the train step's shape: sums, loss and f_score against the twin
+    for focal+dice and CE; three calls in a row give the same bits (the last
+    CTA resets its ticket), one launch each."""
     logits, target, w = _seg_inputs(dev, dt, weighted=weighted)
-    before = losses_seg_fused.LAUNCHES["seg_loss_sums"]
-    acc = losses_seg_fused.seg_loss_sums(logits, target, w, 0.5, 2.0, 0.5)
-    again = losses_seg_fused.seg_loss_sums(logits, target, w, 0.5, 2.0, 0.5)
-    torch.cuda.synchronize()
-    assert losses_seg_fused.LAUNCHES["seg_loss_sums"] == before + 2
-    assert torch.equal(acc, again)                       # no float atomics
-    ref = losses_seg_fused.seg_sums_plain(logits, target, w, 0.5, 2.0, 0.5)
     c = 9
-    counts = slice(4 + 3 * c, 4 + 5 * c)                 # tp_f and sum_pred
-    rtol = 1e-5 if dt == torch.float32 else 1e-4
-    torch.testing.assert_close(acc[:4 + 3 * c], ref[:4 + 3 * c], rtol=rtol, atol=1e-3)
-    torch.testing.assert_close(acc[counts], ref[counts], rtol=0, atol=8)
-    for use_focal in (True, False):
-        got = losses_seg_fused._losses_from_acc(acc, c, use_focal, True, 1.0, 1e-5, 1.0, 1e-5)
-        want = losses_seg_fused._losses_from_acc(ref, c, use_focal, True, 1.0, 1e-5, 1.0, 1e-5)
-        torch.testing.assert_close(got[0], want[0], rtol=1e-3, atol=0)
+    for hp in (SEG.SegHyper(), SEG.SegHyper(use_focal=False, use_dice=False)):
+        before = SEG.LAUNCHES["seg_loss_sums"]
+        runs = [SEG.seg_loss_sums(logits, target, w, hp) for _ in range(3)]
+        torch.cuda.synchronize()
+        assert SEG.LAUNCHES["seg_loss_sums"] == before + 3
+        for run in runs[1:]:                             # no float atomics
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], run))
+        acc, loss, fs = runs[0]
+        ref, rloss, rfs = SEG.seg_sums_plain(logits, target, w, hp)
+        _check_sums(acc, ref, dt, c)
+        torch.testing.assert_close(loss, rloss, rtol=1e-3, atol=0)
+        torch.testing.assert_close(fs, rfs, rtol=1e-3, atol=0)
 
 
 @pytest.mark.parametrize("use_focal", [True, False], ids=["focal", "ce"])
 @pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 def test_seg_loss_dlogits_kernel_matches_plain(dev, dt, use_focal):
+    """K4b at the train step's shape, from the twin's sums and a cotangent
+    on the device, against the twin fed the same."""
     logits, target, w = _seg_inputs(dev, dt, seed=1)
-    c = 9
-    acc = losses_seg_fused.seg_sums_plain(logits, target, w, 0.5, 2.0, 0.5)
-    coef = losses_seg_fused._backward_coef(acc, torch.tensor(3e5, device=dev), c, use_focal,
-                                           True, 1.0, 1e-5)
-    before = losses_seg_fused.LAUNCHES["seg_loss_dlogits"]
-    dl = losses_seg_fused.seg_loss_dlogits(logits, target, w, coef, 0.5, 2.0, use_focal)
+    hp = SEG.SegHyper(use_focal=use_focal)
+    acc, _, _ = SEG.seg_sums_plain(logits, target, w, hp)
+    gloss = torch.tensor(3e5, device=dev)
+    before = SEG.LAUNCHES["seg_loss_dlogits"]
+    dl = SEG.seg_loss_dlogits(logits, target, w, acc, gloss, hp)
     torch.cuda.synchronize()
-    assert losses_seg_fused.LAUNCHES["seg_loss_dlogits"] == before + 1
-    ref = losses_seg_fused.seg_dlogits_plain(logits, target, w, coef, 0.5, 2.0, use_focal)
-    assert dl.dtype == dt and dl.shape == logits.shape
-    diff = (dl.float() - ref.float()).abs().max().item()
-    scale = ref.float().abs().max().item()
-    assert scale > 1e-3
-    if dt == torch.float32:
-        assert diff <= 1e-6 * max(1.0, scale)
+    assert SEG.LAUNCHES["seg_loss_dlogits"] == before + 1
+    _check_dlogits(dl, SEG.seg_dlogits_plain(logits, target, w, acc, gloss, hp), dt)
+
+
+@pytest.mark.parametrize("shape, c", [((1, 1, 1), 9), ((1, 3, 100), 9), ((2, 37, 53), 9),
+                                      ((2, 64, 64), 1), ((2, 37, 53), 21), ((1, 45, 61), 32)],
+                         ids=["npix1", "tail", "tail2", "c1", "c21", "c32"])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_seg_loss_kernels_tails_and_generic_classes(dev, dt, shape, c):
+    """Partial last tiles (npix = 1, 300, 3922, 2745) and the generic path
+    (C = 1, 21, 32, any C but 9) of both kernels against their twins."""
+    logits, target, w = _seg_inputs(dev, dt, shape=shape, c=c, seed=3)
+    hp = SEG.SegHyper()
+    acc, loss, fs = SEG.seg_loss_sums(logits, target, w, hp)
+    ref, rloss, rfs = SEG.seg_sums_plain(logits, target, w, hp)
+    _check_sums(acc, ref, dt, c)
+    torch.testing.assert_close(loss, rloss, rtol=1e-3, atol=1e-6)
+    gloss = torch.tensor(float(target.numel()), device=dev)
+    dl = SEG.seg_loss_dlogits(logits, target, w, ref, gloss, hp)
+    ref_dl = SEG.seg_dlogits_plain(logits, target, w, ref, gloss, hp)
+    if c > 1:                      # one class: every probability is 1, dlogits 0
+        _check_dlogits(dl, ref_dl, dt, min_scale=0.0)
     else:
-        assert diff <= 2 * 2.0 ** (np.floor(np.log2(scale)) - 7)
+        assert torch.equal(dl.float(), ref_dl.float())
+
+
+def test_seg_loss_sure_pixels_stay_finite_below_gamma_one(dev):
+    """Pixels sure of their target (pt = 1 within an ulp) with focal gamma
+    0.5: K4's SFU log and exp must not step across 0 into a NaN (f32, the
+    twin's value within 1e-3 relative)."""
+    logits, target, w = _seg_inputs(dev, torch.float32, shape=(2, 64, 64), seed=8)
+    sure = target < 9
+    rows = logits[sure]                  # the target 15 above the rest: ssum = 1 + ~1e-6
+    logits[sure] = rows.scatter(-1, target[sure].long()[:, None],
+                                rows.max(-1, keepdim=True).values + 15.0)
+    hp = SEG.SegHyper(gamma=0.5, use_dice=False)
+    acc, loss, _ = SEG.seg_loss_sums(logits, target, w, hp)
+    ref, rloss, _ = SEG.seg_sums_plain(logits, target, w, hp)
+    assert torch.isfinite(acc).all() and torch.isfinite(loss)
+    torch.testing.assert_close(loss, rloss, rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_seg_loss_kernels_read_unaligned_views(dev, dt):
+    """Logits whose base is not 16-byte aligned (the scalar path) give the
+    twins' results, and the aligned copy's dlogits bit for bit (the same
+    per-pixel arithmetic)."""
+    logits, target, w = _seg_inputs(dev, dt, shape=(2, 64, 96), seed=4)
+    flat = torch.empty(logits.numel() + 1, dtype=dt, device=dev)
+    view = flat[1:].view(logits.shape)
+    view.copy_(logits)
+    assert view.data_ptr() % 16 != 0
+    hp = SEG.SegHyper()
+    acc, _, _ = SEG.seg_loss_sums(view, target, w, hp)
+    ref, _, _ = SEG.seg_sums_plain(logits, target, w, hp)
+    _check_sums(acc, ref, dt, 9)
+    gloss = torch.tensor(float(target.numel()), device=dev)
+    dl = SEG.seg_loss_dlogits(view, target, w, ref, gloss, hp)
+    assert torch.equal(dl, SEG.seg_loss_dlogits(logits, target, w, ref, gloss, hp))
+    _check_dlogits(dl, SEG.seg_dlogits_plain(logits, target, w, ref, gloss, hp), dt)
+
+
+def test_seg_loss_kernels_replay_in_a_cuda_graph(dev):
+    """Forward and backward captured in one CUDA graph: a replay gives the
+    eager calls' bits, twice (the ticket is reset inside the graph too)."""
+    logits, target, w = _seg_inputs(dev, torch.bfloat16, shape=(4, 128, 128), seed=5)
+    hp = SEG.SegHyper()
+    gloss = torch.tensor(7.0, device=dev)
+
+    def run():
+        acc, loss, fs = SEG.seg_loss_sums(logits, target, w, hp)
+        return acc, loss, fs, SEG.seg_loss_dlogits(logits, target, w, acc, gloss, hp)
+
+    eager = [t.clone() for t in run()]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(eager, captured))
+
+
+@pytest.mark.parametrize("weighted", [True, False], ids=["weighted", "plain"])
+def test_seg_loss_f32_in_variant_has_the_bf16_bits(dev, weighted):
+    """The train step's f32-in variant (round_bf16: the model's f32 output,
+    an exact upcast of bf16) gives the bf16 path's sums, loss and f_score
+    bit for bit, and its dlogits upcast; so does an f32 input that is not
+    bf16-exact (rounded on load)."""
+    logits, target, w = _seg_inputs(dev, torch.float32, weighted=weighted, seed=6)
+    hp = SEG.SegHyper()
+    gloss = torch.tensor(11.0, device=dev)
+    b16 = logits.to(torch.bfloat16)
+    want = SEG.seg_loss_sums(b16, target, w, hp)
+    want_dl = SEG.seg_loss_dlogits(b16, target, w, want[0], gloss, hp)
+    for x in (b16.float(), logits):
+        got = SEG.seg_loss_sums(x, target, w, hp, round_bf16=True)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+        dl = SEG.seg_loss_dlogits(x, target, w, got[0], gloss, hp, round_bf16=True)
+        assert dl.dtype == torch.float32 and torch.equal(dl, want_dl.float())
 
 
 @pytest.mark.parametrize("use_focal", [True, False], ids=["focal", "ce"])

@@ -4,14 +4,17 @@ the SM count passed in) and its tensor-core predicate, K2's feat path
 (tensor cores or CUDA cores) by C, head width and dtype, the mixer
 backward's (K6, K6r) head groups before the shared-memory fit, products'
 path and epilogue tiles, the MLP backward's (K5) clusters, hidden split and
-token tiles (from its geometry header, built here by the host compiler), and
-the stand-alone cluster mix's (K7, K7b) path and lane mapping.
+token tiles (from its geometry header, built here by the host compiler),
+the stand-alone cluster mix's (K7, K7b) path and lane mapping, and the
+seg-loss kernels' (K4, K4b) ring depth, grid and tile dealing, with a model
+of K4's fixed-order reduction.
 """
 import ctypes
 import shutil
 import subprocess
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -534,3 +537,121 @@ def test_simota_rows_merge_equals_the_rounds(k):
         order = [int(i) for i in np.argsort(cost, kind="stable")
                  if not np.isnan(cost[i]) and cost[i] < _BIG / 2]
         assert picks == order[:dyn], kind
+
+
+# ---------------------------------------------------------------------------
+# the seg-loss kernels (K4, K4b): ring depth, persistent grid, tile dealing
+# (csrc/seg_loss.cuh::Tiles) and K4's fixed-order reduction
+# ---------------------------------------------------------------------------
+
+SEG_NPIX = 16 * 512 * 512                 # the train step's, batch 16 at 512^2
+
+
+def test_seg_mirrors_match_the_sources():
+    import re
+
+    src = "".join(open(f"{kernels.CSRC}/{f}").read() for f in ("seg_loss.cuh", "seg_loss_sums.cu"))
+    const = dict(re.findall(r"(k\w+) = ([\d <]+)[;,]", src))
+    assert int(const["kTile"]) == kernels.SEG_TILE
+    assert int(const["kWideThreads"]) == kernels.SEG_WIDE
+    assert eval(const["kRingBytes"]) == kernels.SEG_RING_BYTES
+    assert eval(re.search(r"kC \? (\d+ << 10) : kRingBytes", src).group(1)) == \
+        kernels.SEG_WIDE_RING_BYTES
+    assert (int(const["kMinStages"]), int(const["kMaxStages"])) == kernels.SEG_STAGES
+
+
+@pytest.mark.parametrize("c", [1, 9, 21, 32])
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_seg_rings_fit_and_are_deep_on_the_main_path(c, itemsize):
+    # K4b: 256 threads, two output slots, the CTA within the card's 227 KB
+    s = kernels.seg_ring_stages(c, itemsize)
+    slot = kernels.SEG_TILE * (c * itemsize + 4)
+    assert 2 <= s <= 4 and (s == 2 or s * slot <= kernels.SEG_RING_BYTES)
+    assert 432 + 2 * kernels.SEG_TILE * c * itemsize + s * slot <= 232448
+    # K4: its threads' target bins and its ring
+    thr = kernels.seg_sums_threads(c)
+    budget = kernels.SEG_WIDE_RING_BYTES if c == 9 else kernels.SEG_RING_BYTES
+    s4 = kernels.seg_ring_stages(c, itemsize, thr, budget)
+    assert 192 + 3 * c * thr * 4 + s4 * thr * (c * itemsize + 4) <= 232448
+    if c == 9:
+        assert (s, s4, thr) == (4, 4 if itemsize == 2 else 3, 768)
+
+
+def _seg_deal(npix, grid, bulk, tile=kernels.SEG_TILE):
+    """Per CTA, the tiles it takes in order (seg_loss.cuh::Tiles): ring tiles
+    b, b + grid, ... below the first scalar tile, then scalar tiles from the
+    CTA after the last ring tile's."""
+    nfull = npix // tile
+    ntiles, first = -(-npix // tile), (nfull if bulk else 0)
+    deal = []
+    for b in range(grid):
+        mine = list(range(b, first, grid))
+        mine += list(range(first + (b + grid - first % grid) % grid, ntiles, grid))
+        deal.append(mine)
+    return deal
+
+
+@pytest.mark.parametrize("npix", [1, 255, 256, 257, 3000, SEG_NPIX - 3, SEG_NPIX])
+@pytest.mark.parametrize("bulk", [True, False], ids=["bulk", "scalar"])
+@pytest.mark.parametrize("backward, c, itemsize", [(True, 9, 2), (True, 9, 4), (False, 9, 2),
+                                                   (False, 21, 4)],
+                         ids=["K4b-bf16", "K4b-f32", "K4", "K4-generic"])
+def test_seg_tiles_are_dealt_once_and_evenly(npix, bulk, backward, c, itemsize):
+    tile = kernels.SEG_TILE if backward else kernels.seg_sums_threads(c)
+    grid = kernels.seg_grid(backward, npix, c, itemsize, H100_SMS)
+    ntiles = -(-npix // tile)
+    per_sm = kernels.SEG_CTAS_PER_SM[itemsize] if backward else 1
+    assert grid == min(ntiles, per_sm * H100_SMS)
+    deal = _seg_deal(npix, grid, bulk, tile)
+    assert sorted(t for mine in deal for t in mine) == list(range(ntiles))
+    # the partial tile does not lengthen the longest CTA
+    assert max(map(len, deal)) == -(-ntiles // grid)
+
+
+def _seg_reduce(acc):
+    """K4's reduction of per-thread f32 accumulators acc (grid, threads, W):
+    per CTA and value, lane l adds threads l, l + 32, ... in order (f32), an
+    xor butterfly adds the 32 lanes (lane 0's is the CTA's row); the last
+    CTA sums column w over rows q, q + Q, ... in f64 (Q = threads // W
+    slices), then the slices in order."""
+    grid, thr, w = acc.shape
+    lanes = np.zeros((grid, 32, w), np.float32)
+    for i in range(thr // 32):
+        lanes = lanes + acc[:, i * 32:(i + 1) * 32]
+    for o in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, np.arange(32) ^ o]
+    assert (lanes == lanes[:, :1]).all()       # every lane holds the CTA's sum
+    rows = lanes[:, 0]
+    q_ = thr // w
+    part = [sum((rows[r].astype(np.float64) for r in range(q, grid, q_)), np.zeros(w))
+            for q in range(q_)]
+    return sum(part, np.zeros(w)).astype(np.float32)
+
+
+@pytest.mark.parametrize("npix, grid, c", [(3000, 3, 9), (768 * 7 + 5, 4, 9), (1, 1, 9),
+                                           (2000, 2, 21)])
+def test_seg_sums_model_matches_the_plain_twin(npix, grid, c):
+    """The per-pixel terms of the plain twin, dealt to the threads as the
+    kernel deals tiles and reduced as the kernel reduces, give the twin's
+    sums (rtol 1e-5: f32 sums in another order)."""
+    from asy_vrnet_tpu_torch.ops import losses_seg_fused as tf
+
+    hp, thr = tf.SegHyper(), kernels.seg_sums_threads(c)
+    rng = np.random.default_rng(npix)
+    logits = torch.from_numpy((rng.standard_normal((1, 1, npix, c)) * 2).astype(np.float32))
+    target = torch.from_numpy(rng.integers(0, c + 1, (1, 1, npix)).astype(np.int32))
+    probs, onehot, nll, w_t = tf._softmax_parts(logits, target, None)
+    logpt = -nll
+    focal = -((1.0 - torch.exp(logpt)) ** hp.gamma) * (hp.alpha * logpt)
+    pred = (probs > hp.threshold).float()
+    terms = torch.cat([torch.stack([nll, w_t, focal, torch.ones_like(nll)], 1),
+                       onehot * probs, probs, onehot, onehot * pred, pred], 1).numpy()
+    w = terms.shape[1]
+    pad = np.zeros((-(-npix // thr) * thr, w), np.float32)
+    pad[:npix] = terms
+    acc = np.zeros((grid, thr, w), np.float32)
+    for b, mine in enumerate(_seg_deal(npix, grid, True, thr)):
+        for t in mine:
+            acc[b] = acc[b] + pad[t * thr:(t + 1) * thr]
+    want, _, _ = tf.seg_sums_plain(logits, target, None, hp)
+    np.testing.assert_allclose(_seg_reduce(acc), want.numpy(), rtol=1e-5, atol=1e-5)

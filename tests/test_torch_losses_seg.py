@@ -160,8 +160,9 @@ def test_sums_vector_layout_and_quirks():
     """The (4 + 5*C,) sums: npix counts every pixel, ignored pixels add to
     sum_p and sum_pred but to no per-class target sum."""
     logits, target, onehot, weights = _data(shape=(1, 4, 8), seed=9)
-    acc = tf.seg_sums_plain(torch.from_numpy(logits), torch.from_numpy(target),
-                            torch.from_numpy(weights), 0.5, 2.0, 0.5)
+    acc, _, _ = tf.seg_sums_plain(torch.from_numpy(logits), torch.from_numpy(target),
+                                  torch.from_numpy(weights),
+                                  tf.SegHyper(alpha=0.5, gamma=2.0, threshold=0.5))
     assert acc.shape == (4 + 5 * C,)
     tp, sp, st, tpf, spr = tf._split_acc(acc, C)
     assert acc[3].item() == 32
@@ -179,3 +180,70 @@ def test_wrappers_refuse_what_the_kernel_does_not_take():
         tf._check_inputs("seg_loss_sums", torch.from_numpy(logits),
                          torch.from_numpy(target).long(), torch.from_numpy(weights))
     assert tf.LAUNCHES == {"seg_loss_sums": 0, "seg_loss_dlogits": 0}
+
+
+HYPERS = [tf.SegHyper(), tf.SegHyper(use_focal=False, use_dice=False),
+          tf.SegHyper(use_dice=False, gamma=0.5, alpha=0.25),
+          tf.SegHyper(use_focal=False, dice_beta=2.0, fs_beta=0.5, threshold=0.3)]
+
+
+@pytest.mark.parametrize("weighted", [False, True], ids=["plain", "weighted"])
+@pytest.mark.parametrize("hp", HYPERS, ids=["focal+dice", "ce", "focal", "ce+dice"])
+def test_twins_give_the_kernels_contract(hp, weighted):
+    """What each kernel computes inside (so one launch a direction): the sums
+    twin returns the loss and f_score of `_losses_from_acc`, which equal
+    their formulas in f64; the dlogits twin takes the sums and the loss
+    cotangent and applies `_backward_coef`, whose coefficients equal theirs
+    in f64, linearly in the cotangent."""
+    logits, target, _, weights = _data(shape=(2, 8, 16), seed=11)
+    lg, tg = torch.from_numpy(logits), torch.from_numpy(target)
+    w = torch.from_numpy(weights) if weighted else None
+    acc, loss, fs = tf.seg_sums_plain(lg, tg, w, hp)
+    assert (loss, fs) == tuple(tf._losses_from_acc(acc, C, hp))
+    if not weighted:       # None reads as every class 1
+        ones, _, _ = tf.seg_sums_plain(lg, tg, torch.ones(C), hp)
+        assert torch.equal(acc, ones)
+    a = acc.double().numpy()
+    tp, sp, st, tpf, spr = a[4:].reshape(5, C)
+    want = a[2] / a[3] if hp.use_focal else a[0] / max(a[1], 1e-12)
+    b2 = hp.dice_beta ** 2
+    u, v = (1 + b2) * tp + hp.dice_smooth, b2 * st + sp + hp.dice_smooth
+    if hp.use_dice:
+        want += 1 - (u / v).mean()
+    f2 = hp.fs_beta ** 2
+    uf = (1 + f2) * tpf + hp.fs_smooth
+    np.testing.assert_allclose([loss.item(), fs.item()],
+                               [want, (uf / (f2 * (st - tpf) + spr - tpf + uf)).mean()],
+                               rtol=1e-6)
+    g = 2.5
+    coef = tf._backward_coef(acc, torch.tensor(g), C, hp).double().numpy()
+    scale = g / (a[3] if hp.use_focal else max(a[1], 1e-12))
+    ab = ([-g * (1 + b2) / (C * v), g * u / (C * v * v)] if hp.use_dice
+          else [np.zeros(C)] * 2)
+    np.testing.assert_allclose(coef, np.concatenate([*ab, [scale]]), rtol=1e-6)
+    dl = tf.seg_dlogits_plain(lg, tg, w, acc, torch.tensor(g), hp)
+    dl1 = tf.seg_dlogits_plain(lg, tg, w, acc, torch.tensor(1.0), hp)
+    np.testing.assert_allclose(dl.numpy(), g * dl1.numpy(), rtol=1e-5, atol=1e-7)
+    assert tf.LAUNCHES == {"seg_loss_sums": 0, "seg_loss_dlogits": 0}
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["bf16-values", "f32-values"])
+def test_round_bf16_gives_the_bf16_path(exact):
+    """f32 logits read with round_bf16 give the bits of the same call on
+    their bf16 cast, and a gradient that holds those bf16 values in f32 (the
+    train step passes the model's f32 output, an exact upcast: `exact`)."""
+    logits, target, _, weights = _data(seed=12)
+    lg32 = torch.from_numpy(logits)
+    if exact:
+        lg32 = lg32.to(torch.bfloat16).float()
+    out = []
+    for x, rnd in ((lg32.to(torch.bfloat16), False), (lg32, True)):
+        x = x.clone().requires_grad_(True)
+        loss, fs = tf.fused_seg_loss_and_fscore(
+            x, torch.from_numpy(target), torch.from_numpy(weights), C, use_kernel=True,
+            round_bf16=rnd)
+        loss.backward()
+        out.append((loss, fs, x.grad))
+    (l16, f16, g16), (l32, f32, g32) = out
+    assert torch.equal(l16, l32) and torch.equal(f16, f32)
+    assert g32.dtype == torch.float32 and torch.equal(g32, g16.float())
