@@ -31,6 +31,44 @@ def letterbox_image(image, size_wh: tuple[int, int], fill=(128, 128, 128)):
     return new_image, nw, nh
 
 
+def letterbox_label(label, size_wh: tuple[int, int]):
+    """NEAREST letterbox for segmentation labels, 0 padding
+    (utils/dataloader.py:144-146)."""
+    from PIL import Image
+
+    iw, ih = label.size
+    w, h = size_wh
+    scale = min(w / iw, h / ih)
+    nw, nh = int(iw * scale), int(ih * scale)
+    label = label.resize((nw, nh), Image.NEAREST)
+    new_label = Image.new("L", (w, h), 0)
+    new_label.paste(label, ((w - nw) // 2, (h - nh) // 2))
+    return new_label
+
+
+def letterbox_boxes(
+    boxes: np.ndarray, src_wh: tuple[int, int], dst_wh: tuple[int, int]
+) -> np.ndarray:
+    """Transform xyxy pixel boxes through the letterbox; drops degenerate
+    boxes (utils/dataloader.py:168-177)."""
+    if len(boxes) == 0:
+        return np.zeros((0, 5), np.float32)
+    boxes = np.asarray(boxes, np.float32).copy()
+    iw, ih = src_wh
+    w, h = dst_wh
+    scale = min(w / iw, h / ih)
+    nw, nh = int(iw * scale), int(ih * scale)
+    dx, dy = (w - nw) // 2, (h - nh) // 2
+    boxes[:, [0, 2]] = boxes[:, [0, 2]] * nw / iw + dx
+    boxes[:, [1, 3]] = boxes[:, [1, 3]] * nh / ih + dy
+    boxes[:, 0:2] = np.maximum(boxes[:, 0:2], 0)
+    boxes[:, 2] = np.minimum(boxes[:, 2], w)
+    boxes[:, 3] = np.minimum(boxes[:, 3], h)
+    bw = boxes[:, 2] - boxes[:, 0]
+    bh = boxes[:, 3] - boxes[:, 1]
+    return boxes[np.logical_and(bw > 1, bh > 1)]
+
+
 def normalize_image(image: np.ndarray) -> np.ndarray:
     """/255, ImageNet mean/std (preprocess_input, utils/utils.py:43-47)."""
     image = np.asarray(image, np.float32) / 255.0
@@ -64,3 +102,12 @@ def get_classes(classes_path: str) -> tuple[list[str], int]:
     with open(classes_path, encoding="utf-8") as f:
         names = [c.strip() for c in f.readlines()]
     return names, len(names)
+
+
+def boxes_xyxy_to_cxcywh(boxes: np.ndarray) -> np.ndarray:
+    """In the dataset's convention (utils/dataloader.py:89-90)."""
+    out = np.asarray(boxes, np.float32).copy()
+    if len(out):
+        out[:, 2:4] = out[:, 2:4] - out[:, 0:2]
+        out[:, 0:2] = out[:, 0:2] + out[:, 2:4] / 2
+    return out

@@ -12,6 +12,11 @@ JAX package's leaf transforms:
   BN            scale/bias & mean/var -> weight/bias & running_mean/var
                 (+ a zero `num_batches_tracked`, which flax does not keep)
 
+`flax_path_for` and `flax_from_port` go the other way with no flax tree to
+copy: a port key names its flax path and collection, and a port state_dict
+becomes the nested `params` / `batch_stats` trees in flax shapes (what the
+weights-only npz holds).
+
 `train_state_from_flax` carries a whole JAX train state across (weights, BN
 stats, optimiser momentum, log-var, EMA, counters) and `flax_from_train_state`
 goes back for weights, BN stats and EMA.  The JAX optimiser keeps each
@@ -26,6 +31,11 @@ from typing import Any, Iterator, Mapping
 
 import numpy as np
 import torch
+
+
+# the neck's upsample modules: a BaseConv inside the reference's Sequential
+_UPSAMPLES = ("upsample5_4", "upsample4_3", "upsample3_2", "upsample2_0", "p5_4_det",
+              "p4_3_det")
 
 
 def _torch_module_prefix(parts: list[str]) -> list[str]:
@@ -60,8 +70,7 @@ def _torch_module_prefix(parts: list[str]) -> list[str]:
             out.append("conv_cat.0")
         elif p == "conv_cat_bn":
             out.append("conv_cat.1")
-        elif p in ("upsample5_4", "upsample4_3", "upsample3_2", "upsample2_0",
-                   "p5_4_det", "p4_3_det") and i + 1 < len(parts) and parts[i + 1] == "conv":
+        elif p in _UPSAMPLES and i + 1 < len(parts) and parts[i + 1] == "conv":
             out.append(f"{p}.upsample.0")
             i += 1  # the BaseConv inside the reference's Sequential
         elif m := re.fullmatch(r"stem(\d)", p):
@@ -141,6 +150,125 @@ def _walk(tree: Mapping[str, Any], path=()) -> Iterator[tuple[tuple[str, ...], A
             yield path + (k,), v
 
 
+_FROM_TORCH_LEAF = {"weight": "scale", "bias": "bias", "running_mean": "mean",
+                    "running_var": "var"}
+
+
+def _flax_module_path(parts: list[str]) -> tuple[list[str], str | None]:
+    """Port module path components -> (flax module path, the wrapper level
+    ('bn' or 'gn') of a standalone norm whose wrapper the port drops, or
+    None).  Inverse of `_torch_module_prefix`."""
+    out: list[str] = []
+    wrapper = None
+    i = 0
+    while i < len(parts):
+        p = parts[i]
+        nxt = parts[i + 1] if i + 1 < len(parts) else ""
+        if i == 0 and p == "backbone":
+            out.append("neck")
+        elif p in ("network", "network_radar"):
+            radar = p == "network_radar"
+            q, r = divmod(int(nxt), 3)
+            if r == 0:
+                out += [f"stage{q}" + ("_radar" if radar else ""), f"block{parts[i + 2]}"]
+                i += 1
+            elif r == 1:
+                out.append(f"fusion{q}_" + ("radar" if radar else "image"))
+            else:
+                out.append(f"reducer{q}" + ("_radar" if radar else ""))
+            i += 1
+        elif re.fullmatch(r"branch\d", p) and nxt in ("0", "1"):
+            out.append(p + ("_conv" if nxt == "0" else "_bn"))
+            wrapper = "bn" if nxt == "1" else None
+            i += 1
+        elif p == "branch5_bn":
+            out.append(p)
+            wrapper = "bn"
+        elif p == "conv_cat" and nxt in ("0", "1"):
+            out.append("conv_cat_conv" if nxt == "0" else "conv_cat_bn")
+            wrapper = "bn" if nxt == "1" else None
+            i += 1
+        elif p in _UPSAMPLES and nxt == "upsample":
+            out += [p, "conv"]
+            i += 2                      # "upsample.0": the reference's Sequential
+        elif p == "stems":
+            out.append(f"stem{nxt}")
+            i += 1
+        elif p in ("cls_convs", "reg_convs"):
+            out.append(f"{p[:-1]}{nxt}_{parts[i + 2]}")
+            i += 2
+        elif p in ("cls_preds", "reg_preds", "obj_preds"):
+            out.append(f"{p[:-1]}{nxt}")
+            i += 1
+        elif p == "conv" and nxt in ("dconv", "pconv"):
+            pass                        # the ds ConvBnAct's extra level
+        else:
+            out.append(p)
+        i += 1
+    tail = parts[-1] if parts else ""
+    if tail == "norm":
+        wrapper = "bn"                  # the fusion modules' BatchNorm
+    elif re.fullmatch(r"norm\d+", tail):
+        wrapper = "gn"                  # a ClusterBlock's GroupNorm1
+    return out, wrapper
+
+
+def flax_path_for(port_key: str) -> tuple[str, ...]:
+    """Port state_dict key -> flax leaf path (without the 'params' /
+    'batch_stats' root; `flax_collection` names it).  Inverse of
+    `torch_key_for`."""
+    parts = port_key.split(".")
+    leaf = parts.pop()
+    mods, wrapper = _flax_module_path(parts)
+    if wrapper is not None:
+        return (*mods, wrapper, _FROM_TORCH_LEAF[leaf])
+    tail = parts[-1] if parts else ""
+    if tail == "bn":
+        return (*mods, _FROM_TORCH_LEAF[leaf])
+    if tail == "gn":                    # ShuffleAttention's own GroupNorm
+        return (*mods[:-1], "gn_scale" if leaf == "weight" else "gn_bias")
+    if tail == "conv" and len(parts) >= 2 and parts[-2] == "channel_attn":
+        return (*mods[:-1], "conv_w")   # ECA's 1-D conv
+    return (*mods, "kernel" if leaf == "weight" else leaf)
+
+
+def flax_collection(port_key: str) -> str:
+    """'batch_stats' for BatchNorm running statistics, else 'params'."""
+    return "batch_stats" if port_key.endswith((".running_mean", ".running_var")) else "params"
+
+
+def flax_leaf(leaf_name: str, value: torch.Tensor) -> np.ndarray:
+    """A port tensor in the flax leaf's layout and shape (inverse of
+    `_to_torch_leaf`): conv (O,I,kh,kw) -> (kh,kw,I,O), ShuffleAttention
+    (1,C,1,1) -> (C,), sim_alpha / sim_beta (1,) -> ()."""
+    value = value.detach().cpu().numpy().astype(np.float32)
+    if leaf_name == "kernel" and value.ndim == 4:
+        return np.ascontiguousarray(np.transpose(value, (2, 3, 1, 0)))
+    if leaf_name in _SA_LEAVES:
+        return value.reshape(-1)
+    if leaf_name in ("sim_alpha", "sim_beta"):
+        return value.reshape(())
+    return value
+
+
+def flax_from_port(sd: Mapping[str, torch.Tensor]) -> dict:
+    """Port tensors by state_dict key -> {'params': ..., 'batch_stats': ...}
+    nested flax dicts of numpy arrays in flax shapes (`num_batches_tracked`,
+    which flax does not keep, is dropped)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, value in sd.items():
+        if key.endswith(".num_batches_tracked"):
+            continue
+        path = flax_path_for(key)
+        node = out[flax_collection(key)]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        if path[-1] in node:
+            raise ValueError(f"two port keys map to {'/'.join(path)}")
+        node[path[-1]] = flax_leaf(path[-1], value)
+    return out
+
+
 def state_dict_from_flax(params: Mapping[str, Any],
                          batch_stats: Mapping[str, Any]) -> dict[str, torch.Tensor]:
     """Nested flax dicts of arrays -> port state_dict (f32 CPU tensors)."""
@@ -156,19 +284,26 @@ def state_dict_from_flax(params: Mapping[str, Any],
     return sd
 
 
+def npz_tree(path: str) -> dict:
+    """An npz of flat 'a/b/.../leaf' keys -> the nested dicts of numpy arrays
+    ({'params': ..., 'batch_stats': ...} for a weights-only file)."""
+    out: dict = {}
+    with np.load(path) as flat:
+        for key in flat.files:
+            parts = key.split("/")
+            node = out
+            for p in parts[:-1]:
+                node = node.setdefault(p, {})
+            node[parts[-1]] = flat[key]
+    return out
+
+
 def load_npz(path: str) -> tuple[dict, dict]:
     """Weights-only npz (flat 'params/...', 'batch_stats/...' keys, as the
     JAX package's `train/checkpoint.py::save_weights` writes) ->
     (params, batch_stats) nested dicts of numpy arrays."""
-    out: dict = {"params": {}, "batch_stats": {}}
-    with np.load(path) as flat:
-        for key in flat.files:
-            parts = key.split("/")
-            node = out.setdefault(parts[0], {})
-            for p in parts[1:-1]:
-                node = node.setdefault(p, {})
-            node[parts[-1]] = flat[key]
-    return out["params"], out["batch_stats"]
+    tree = npz_tree(path)
+    return tree.get("params", {}), tree.get("batch_stats", {})
 
 
 def load_npz_into(model: torch.nn.Module, path: str) -> None:
@@ -198,14 +333,6 @@ def split_flat(vec: np.ndarray, params: Mapping[str, Any]) -> dict[str, torch.Te
     return out
 
 
-def _from_torch_leaf(leaf_name: str, value: torch.Tensor, shape) -> np.ndarray:
-    """Inverse of `_to_torch_leaf`, into the flax leaf's `shape`."""
-    value = value.detach().cpu().numpy().astype(np.float32)
-    if leaf_name == "kernel" and value.ndim == 4:
-        value = np.transpose(value, (2, 3, 1, 0))
-    return np.array(value.reshape(shape), order="C")   # keeps 0-d leaves 0-d
-
-
 def flax_from_state_dict(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]) -> dict:
     """Port tensors by state_dict key -> a nested flax dict with the structure
     and leaf shapes of `like`: a tree of arrays (the `params` of `load_npz`)
@@ -215,7 +342,8 @@ def flax_from_state_dict(sd: Mapping[str, torch.Tensor], like: Mapping[str, Any]
         node = out
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = _from_torch_leaf(path[-1], sd[torch_key_for(path)], _shape(leaf))
+        value = flax_leaf(path[-1], sd[torch_key_for(path)]).reshape(_shape(leaf))
+        node[path[-1]] = np.array(value, order="C")     # keeps 0-d leaves 0-d
     return out
 
 

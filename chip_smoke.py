@@ -125,7 +125,23 @@ Phases (each raises on failure; nothing is caught):
      over the 7 shapes).  Then the tool's own path
      (`python -m asy_vrnet_tpu_torch.tools.ablate_mixer_fwd`, its defaults)
      with the launch count reset before and read after: every prefix timed
-     by the profiler trace and by CUDA events.
+     by the profiler trace and by CUDA events;
+ 15. the training CLI (`asy_vrnet_tpu_torch/cli/train.py`, called through its
+     `main` in this process) on r05's recipe: the 48-image learnable set at
+     512^2, batch 8, Adam, bf16, no EMA, signed seg logits, starting from the
+     r05 weights (`partial_load` must load every leaf), 3 epochs with the
+     first at the frozen-backbone batch of 32, then `--resume` from
+     `ckpt/step_3.pt` for a fourth.  The callbacks on the r05 weights before
+     training and after every epoch: AP50 >= 0.90, mIoU >= 0.93; every
+     epoch's loss finite; launch counters over the run: K2 and K1 27 a train
+     step, val step and callback forward, K6 and K5 27 a train step, K4 and
+     the SimOTA wrapper once a train and val step, K4b once a train step, no
+     other kernel; every batch `device_prefetch` hands out in epoch 1 equal
+     to its host batch; the resumed step count continues from three epochs'
+     steps; `last_epoch_weights.npz` loads strictly into a new model.  Per
+     epoch (host clock): wall seconds, the train loop's images/s, the share
+     spent waiting on the loader (inside `device_prefetch`), and which npz
+     reader ran.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -1130,6 +1146,252 @@ def check_seg_loss(dev):
     return stats
 
 
+# phase 15: the training CLI on the card, r05's recipe
+# (model_data/convergence_tpu_r05/MILESTONES.md:17-20) for three epochs, then
+# one more from the full checkpoint
+CLI_FLAGS = ["--synthetic", "48", "--synthetic-learnable", "--input-size", "512",
+             "--freeze-epoch", "1", "--batch-size", "8", "--optimizer", "adam",
+             "--init-lr", "4e-4", "--no-ema", "--seg-signed-logits", "--eval-period", "1",
+             "--save-period", "3", "--compute-dtype", "bfloat16", "--cache-gb", "1",
+             "--weights", R05]
+CLI_MIN_AP50, CLI_MIN_MIOU = 0.90, 0.93
+# the kernels of the CLI's path (the others must stay at 0 launches)
+CLI_KERNELS = ("mixer_block", "mlp_block", "mixer_block_bwd", "mlp_block_bwd",
+               "seg_loss_sums", "seg_loss_dlogits", "simota_assign")
+
+
+def check_train_cli(dev):
+    """Phase 15: `python -m asy_vrnet_tpu_torch.cli.train` in this process,
+    through its `main`, on r05's recipe: 3 epochs (the first with the
+    backbone frozen at batch 32), then `--resume` from `ckpt/step_3.pt` for a
+    fourth.  Checks: partial_load loads every leaf; the callbacks on the r05
+    weights before training and after every epoch give AP50 and mIoU above
+    their floors; every epoch's loss is finite; the launch counters over the
+    run equal 27 K2 and K1 a train step, val step and callback forward, 27
+    K6 and K5 a train step, K4 and the SimOTA wrapper a train and val step,
+    K4b a train step, no other kernel; every batch `device_prefetch` hands
+    out in epoch 1 equals its host batch; the resumed run's step continues
+    from three epochs' steps; `last_epoch_weights.npz` loads strictly into a
+    fresh model.  -> summary (epoch seconds, images/s and loader-wait share
+    by host clock, the launches, the metrics)."""
+    import numpy as np
+    import torch
+
+    from asy_vrnet_tpu_torch.cli import train as cli
+    from asy_vrnet_tpu_torch.data import native_io
+    from asy_vrnet_tpu_torch.data.dataset import (
+        DataLoader,
+        WaterScenesDataset,
+        read_annotation_file,
+    )
+    from asy_vrnet_tpu_torch.data.synthetic import write_learnable_voc_dataset
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.ops import block, simota_fused
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
+    from asy_vrnet_tpu_torch.train import callbacks, checkpoint, loop
+    from asy_vrnet_tpu_torch.train.state import float_state
+
+    t_phase = time.time()
+    counters = (block, cf, segf, simota_fused)
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    save_dir = os.path.join(work, "logs")
+    flags = CLI_FLAGS + ["--save-dir", save_dir]
+    args = cli.build_argparser().parse_args(flags)
+    cfg, class_names = cli.resolve_config(args)
+    n, size = args.synthetic, args.input_size
+    hw = (size, size)
+    log(f"[train cli] npz reader: {'native' if native_io.native_available() else 'numpy'}"
+        f" (build error: {native_io.build_error()})")
+
+    # the r05 weights before training: the callbacks on a copy of the set
+    # the CLI writes (the same writer, size and seed)
+    meta = write_learnable_voc_dataset(os.path.join(work, "pre"), num_images=n, hw=hw)
+    model = create_model(cfg.model, dev, weights=R05)
+    ds = WaterScenesDataset(read_annotation_file(meta["annotation_path"]), hw,
+                            cfg.model.num_classes, cfg.model.num_seg_classes,
+                            meta["radar_root"], meta["seg_dataset_path"],
+                            max_boxes=cfg.loss.max_boxes)
+    pre_loader = DataLoader(ds, cfg.train.batch_size, shuffle=False, workers=2)
+    logs = os.path.join(work, "pre_logs")
+    pre_ap = callbacks.DetEvalCallback(model, cfg, pre_loader, class_names, logs,
+                                       period=1).on_epoch_end(0, float_state(model))
+    pre_miou = callbacks.SegEvalCallback(model, cfg, pre_loader, logs,
+                                         period=1).on_epoch_end(0, float_state(model))
+    log(f"[train cli] r05 weights before training: AP50 {pre_ap:.4f}, mIoU {pre_miou:.4f}")
+    check(pre_ap >= CLI_MIN_AP50 and pre_miou >= CLI_MIN_MIOU, "r05's AP50 / mIoU")
+    del model
+
+    loads, calls, forwards, cb_s = [], [], [0], []
+    real_prefetch, real_partial = loop.device_prefetch, checkpoint.partial_load
+    real_forward = callbacks._EvalForward.__call__
+    real_cbs = {c: c.on_epoch_end for c in (callbacks.DetEvalCallback,
+                                            callbacks.SegEvalCallback)}
+
+    def timed(cls):
+        def on_epoch_end(self, epoch, variables):
+            t = time.time()
+            out = real_cbs[cls](self, epoch, variables)
+            cb_s.append((cls.__name__, time.time() - t))
+            return out
+        return on_epoch_end
+
+    def partial_load(target, source, verbose=True):
+        out = real_partial(target, source, verbose)
+        loads.append((len(out[1]), len(out[2])))
+        return out
+
+    def forward(self, variables, batch):
+        forwards[0] += 1
+        return real_forward(self, variables, batch)
+
+    def prefetch(iterator, device):
+        """device_prefetch, timed; in epoch 1 (its first two calls: train,
+        val) every device batch is held against its host batch."""
+        rec = {"start": time.time(), "batches": 0, "images": 0, "wait": 0.0, "step_s": []}
+        calls.append(rec)
+        held = len(calls) <= 2
+        hosts = []
+
+        def tee():
+            for b in iterator:
+                if held:
+                    hosts.append(b)
+                yield b
+
+        it = real_prefetch(tee(), device)
+        handed = None
+        while True:
+            t = time.time()
+            if handed is not None:              # the consumer's time for the last batch
+                rec["step_s"].append(t - handed)
+            try:
+                db = next(it)
+            except StopIteration:
+                break
+            rec["wait"] += time.time() - t
+            if held:
+                host = hosts.pop(0)
+                for k, v in host.items():
+                    if k != "image_id":
+                        check(db[k].device.type == dev.type
+                              and torch.equal(db[k].cpu(), torch.as_tensor(v)),
+                              f"prefetched {k} equals the host batch")
+            rec["batches"] += 1
+            rec["images"] += int(db["image"].shape[0])
+            handed = time.time()
+            yield db
+        rec["end"] = time.time()
+
+    def run(argv):
+        reset_launches(*counters)
+        loop.device_prefetch, checkpoint.partial_load = prefetch, partial_load
+        callbacks._EvalForward.__call__ = forward
+        for cls in real_cbs:
+            cls.on_epoch_end = timed(cls)
+        old_tmp = tempfile.tempdir
+        tempfile.tempdir = work                   # the CLI's synthetic set
+        try:
+            t0 = time.time()
+            state = cli.main(argv)
+            torch.cuda.synchronize()
+            return state, time.time() - t0
+        finally:
+            tempfile.tempdir = old_tmp
+            loop.device_prefetch, checkpoint.partial_load = real_prefetch, real_partial
+            callbacks._EvalForward.__call__ = real_forward
+            for cls, fn in real_cbs.items():
+                cls.on_epoch_end = fn
+
+    try:
+        state, seconds = run(flags + ["--epochs", "3"])
+        end = time.time()
+        launches = {k: v for m in counters for k, v in m.LAUNCHES.items()}
+        check(len(calls) == 6, f"device_prefetch calls {len(calls)}, expected 6")
+        train = sum(calls[i]["batches"] for i in (0, 2, 4))
+        val = sum(calls[i]["batches"] for i in (1, 3, 5))
+        want = dict.fromkeys(launches, 0)
+        want.update(mixer_block=27 * (train + val + forwards[0]),
+                    mlp_block=27 * (train + val + forwards[0]),
+                    mixer_block_bwd=27 * train, mlp_block_bwd=27 * train,
+                    seg_loss_sums=train + val, seg_loss_dlogits=train,
+                    simota_assign=train + val)
+        log(f"[train cli] partial_load (loaded, kept) {loads}; {train} train steps, {val} "
+            f"val steps, {forwards[0]} callback forwards; launches {launches}")
+        with np.load(args.weights) as src:
+            leaves = len(src.files)
+        check(len(loads) == 2 and sum(l for l, _ in loads) == leaves
+              and not any(k for _, k in loads), f"partial_load loaded every leaf: {loads}")
+        check(launches == want, f"CLI launches {launches}, expected {want}")
+        per_epoch = n // cfg.train.batch_size
+        check(train == n // cfg.train.freeze_batch_size + 2 * per_epoch
+              and val == 3 * per_epoch and forwards[0] == 2 * 3 * per_epoch
+              and state.step == train,
+              f"steps {train}, {val}, {forwards[0]}, state.step {state.step}")
+
+        def lines(name):
+            with open(os.path.join(save_dir, name)) as f:
+                return [float(v) for v in f.read().split()]
+
+        aps, mious = lines("epoch_map.txt"), lines("epoch_miou.txt")
+        losses = lines(os.path.join("loss", "epoch_det_seg.txt"))
+        val_losses = lines(os.path.join("loss", "epoch_val_det_seg.txt"))
+        epochs = []
+        for e in range(3):
+            tr, vl = calls[2 * e], calls[2 * e + 1]
+            wall = (calls[2 * e + 2]["start"] if e < 2 else end) - tr["start"]
+            det_s, seg_s = cb_s[2 * e][1], cb_s[2 * e + 1][1]
+            epochs.append({
+                "epoch": e + 1, "wall_s": wall, "train_s": vl["start"] - tr["start"],
+                "val_s": vl["end"] - vl["start"], "det_eval_s": det_s, "seg_eval_s": seg_s,
+                "step_ms": [round(1e3 * v, 3) for v in tr["step_s"]],
+                "train_images": tr["images"],
+                "train_images_per_s": tr["images"] / (vl["start"] - tr["start"]),
+                "loader_wait_s": tr["wait"] + vl["wait"],
+                "loader_wait_share": (tr["wait"] + vl["wait"]) / wall,
+                "loss": losses[e], "val_loss": val_losses[e], "ap50": aps[e],
+                "miou": mious[e]})
+            log("[train cli] epoch {epoch}: wall {wall_s:.3f} s, train loop {train_s:.3f} s "
+                "for {train_images} images ({train_images_per_s:.2f} images/s; host ms a "
+                "step {step_ms}), val loop {val_s:.3f} s, det eval {det_eval_s:.3f} s, seg "
+                "eval {seg_eval_s:.3f} s, loader wait {loader_wait_s:.3f} s "
+                "({loader_wait_share:.4f} of the epoch); loss {loss:.4f}, val {val_loss:.4f}, "
+                "AP50 {ap50:.4f}, mIoU {miou:.4f}".format(**epochs[-1]))
+        check(len(aps) == len(mious) == len(losses) == 3, "one eval and loss an epoch")
+        check(all(np.isfinite(losses + val_losses)), f"finite losses {losses} {val_losses}")
+        check(min(aps) >= CLI_MIN_AP50 and min(mious) >= CLI_MIN_MIOU,
+              f"AP50 {aps}, mIoU {mious}")
+
+        first_steps = state.step
+        ckpt = os.path.join(save_dir, "ckpt", "step_3.pt")
+        del state
+        calls.clear()
+        cb_s.clear()
+        forwards[0] = 0
+        resumed, resume_s = run(flags + ["--epochs", "4", "--resume", ckpt])
+        aps, mious, losses = (lines("epoch_map.txt"), lines("epoch_miou.txt"),
+                              lines(os.path.join("loss", "epoch_det_seg.txt")))
+        log(f"[train cli] resumed from step_3.pt: step {first_steps} -> {resumed.step} over "
+            f"{calls[0]['batches']} steps in {resume_s:.3f} s; epoch 4 loss {losses[-1]:.4f}, "
+            f"AP50 {aps[-1]:.4f}, mIoU {mious[-1]:.4f}")
+        check(len(calls) == 2 and calls[0]["batches"] == per_epoch
+              and resumed.step == first_steps + per_epoch, f"the resumed step count {resumed.step}")
+        check(len(aps) == 4 and np.isfinite(losses[-1]) and aps[-1] >= CLI_MIN_AP50
+              and mious[-1] >= CLI_MIN_MIOU, f"epoch 4: AP50 {aps}, mIoU {mious}")
+        check(os.path.exists(os.path.join(save_dir, "ckpt", "step_4.pt")), "step_4.pt")
+        del resumed
+        create_model(cfg.model, dev, weights=os.path.join(save_dir, "last_epoch_weights.npz"))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    total = time.time() - t_phase
+    log(f"[train cli] phase 15 took {total:.1f} s (first run {seconds:.1f} s)")
+    return {"epochs": epochs, "launches": launches, "train_steps": train, "val_steps": val,
+            "callback_forwards": 2 * 3 * per_epoch, "pre_training": {"ap50": pre_ap, "miou": pre_miou},
+            "epoch4": {"ap50": aps[-1], "miou": mious[-1], "loss": losses[-1]},
+            "npz_reader": "native" if native_io.native_available() else "numpy",
+            "seconds": total}
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1939,6 +2201,12 @@ def main() -> int:
         "library_ms": None, "tool": tool_res, "attribution": attribution,
         "numerics_bf16": ab_stats["numerics"], "per_shape": ab_stats["per_shape"]})
 
+    # ---- 15. the training CLI (cli/train.py) on r05's recipe ----
+    cli_stats = check_train_cli(dev)
+    for entry in report:
+        entry["launches_train_cli"] = cli_stats["launches"].get(entry["name"], 0)
+    check(all(cli_stats["launches"][k] > 0 for k in CLI_KERNELS), "the CLI ran its kernels")
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -1950,7 +2218,8 @@ def main() -> int:
                       "cluster_mix_assignment_agreement_bf16": cl_agreement,
                       "mixer_assignment_agreement_bf16": stats_out["mixer_block"].get("agreement"),
                       "pack_assignment_agreement_bf16": pack_agreement,
-                      "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"]}),
+                      "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"],
+                      "train_cli": cli_stats}),
           flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(smi, flush=True)

@@ -1203,3 +1203,36 @@ def test_mixer_ablate_prefixes_match_plain(dev, shape, dt):
         tol = (1e-5 if dt == torch.float32 else 1e-3) * want[..., 1]
         assert ((part - want).abs() <= tol[..., None]).all(), (stop, nf)
     assert ma.LAUNCHES["mixer_block_ablate"] == before + 11
+
+
+def test_device_prefetch_delivers_the_host_batches(dev):
+    """The training loop's prefetch (pinned host copies, one batch ahead on
+    a side stream): 24 batches of every dtype the loader ships, each
+    consumed while the card is busy with other work, equal the host's
+    arrays bit for bit and lie on the card."""
+    from asy_vrnet_tpu_torch.data.dataset import device_prefetch
+
+    rng = np.random.default_rng(0)
+    hosts = [{
+        "image": rng.integers(0, 255, (8, 64, 64, 3), dtype=np.uint8),
+        "radar": torch.from_numpy(rng.standard_normal((8, 64, 64, 4), dtype=np.float32)
+                                  ).to(torch.bfloat16),
+        "gt_boxes": rng.standard_normal((8, 100, 4), dtype=np.float32),
+        "gt_valid": rng.random((8, 100)) < 0.3,
+        "seg_target": rng.integers(0, 10, (8, 64, 64), dtype=np.uint8),
+        "image_id": [f"id{i}_{k}" for k in range(8)],
+    } for i in range(24)]
+    busy = torch.randn(2048, 2048, device=dev)
+    got = []
+    for db in device_prefetch(iter(hosts), dev):
+        for _ in range(4):
+            busy = torch.tanh(busy @ busy) * 0.5
+        got.append({k: (v.clone() if isinstance(v, torch.Tensor) else v) for k, v in db.items()})
+    torch.cuda.synchronize()
+    assert len(got) == len(hosts)
+    for h, d in zip(hosts, got):
+        assert d["image_id"] == h["image_id"]
+        for k, v in h.items():
+            if k != "image_id":
+                assert d[k].device.type == "cuda" and d[k].dtype == torch.as_tensor(v).dtype
+                assert torch.equal(d[k].cpu(), torch.as_tensor(v)), k
