@@ -5,8 +5,8 @@ reference neck/coc_fpn_dual.py:15-224).
 Parity notes kept: the seg branch consumes the 4 image taps, the det FPN the
 3 deepest radar taps; concat order is skip-first at seg4 and upsample-first
 at seg3/seg2; the final seg projection is a ConvBnAct, so seg "logits" are
-post-ReLU unless `seg_signed_logits`.  `SpatialPyramidPooling` (unused by the
-live path) is not ported yet.
+post-ReLU unless `seg_signed_logits`.  `SpatialPyramidPooling` is unused by
+the live path, as in the reference.
 """
 from __future__ import annotations
 
@@ -90,6 +90,22 @@ class ASPP(nn.Module):
         bs.append(resize_bilinear(g, (h, w), align_corners=True).expand(-1, -1, h, w))
         cat = torch.cat(bs, dim=1).contiguous(memory_format=torch.channels_last)
         return F.relu(self.conv_cat(cat))
+
+
+class SpatialPyramidPooling(nn.Module):
+    """SPP with stride-1 max pools (coc_fpn_dual.py:107-117; unused by the
+    live path but part of the component inventory).  NCHW: the pools in
+    reversed size order, then x, concatenated on channels.  `max_pool2d`
+    pads with -inf, as flax's `max_pool` does."""
+
+    def __init__(self, pool_sizes: tuple[int, ...] = (5, 9, 13)):
+        super().__init__()
+        self.pool_sizes = tuple(pool_sizes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        feats = [F.max_pool2d(x, ps, stride=1, padding=ps // 2)
+                 for ps in self.pool_sizes[::-1]]
+        return torch.cat(feats + [x], dim=1)
 
 
 def _cat(*xs):

@@ -38,7 +38,9 @@ Layout at every public function is NHWC (B, H, W, C), contiguous; the model
 passes the NHWC view of its channels_last tensors.  The wrappers take CPU
 tensors through the plain version and CUDA tensors through the kernel (or
 raise); each counts its kernel launches in LAUNCHES, one key per kernel
-variant.
+variant, where it launches.  The inference forms of K2 and K1 reach their
+launch through the PyTorch operators of `ops/custom_ops.py`, so a replay of
+an exported program counts too and tracing counts nothing.
 """
 from __future__ import annotations
 
@@ -570,7 +572,10 @@ def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
     w2 (I,C) in x's dtype; biases, stats (B,2) and alpha_beta (2,) f32.
     Returns (out (B,H,W,C), moments (B,2) f32 [sum, sum sq] of the stored
     output) [, assignments (B, heads, H, W)] [, residual pack, laid out as
-    in `mixer_block_plain`]."""
+    in `mixer_block_plain`].  On the card the inference form goes through
+    the registered operator `asy_vrnet::mixer_block` (`ops/custom_ops.py`),
+    so `torch.export` and graph capture see one op; the forms with the
+    assignments or the residual pack launch the same kernel directly."""
     kw = dict(heads=heads, fold_h=fold_h, fold_w=fold_w,
               proposal_h=proposal_h, proposal_w=proposal_w)
     if x.device.type == "cpu":
@@ -579,8 +584,24 @@ def mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
                                  return_residuals=return_residuals, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"mixer_block: unsupported device {x.device}")
+    if return_assign or return_residuals:
+        return mixer_block_launch(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta,
+                                  return_assign=return_assign,
+                                  return_residuals=return_residuals, **kw)
+    return torch.ops.asy_vrnet.mixer_block.default(
+        x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, heads, fold_h, fold_w,
+        proposal_h, proposal_w)
+
+
+def mixer_block_launch(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
+                       fold_h, fold_w, proposal_h, proposal_w, return_assign=False,
+                       return_residuals=False):
+    """K2 on CUDA tensors: checks, geometry, outputs, the launch and its
+    count.  What `mixer_block` returns."""
     from asy_vrnet_tpu_torch.ops import kernels
 
+    kw = dict(heads=heads, fold_h=fold_h, fold_w=fold_w,
+              proposal_h=proposal_h, proposal_w=proposal_w)
     _check_mixer_args("mixer_block", x, stats, wf, bf, wv, bv, w2, alpha_beta,
                       heads, fold_h, fold_w)
     b, h, w, c = x.shape
@@ -637,11 +658,21 @@ def mlp_block(x, stats, w1, b1, w2, b2, return_z1=False):
     """MLP half on folded weights.  x (B,H,W,C) bf16|f32; w1 (C,hid) and w2
     (hid,C) in x's dtype; biases and stats (B,2) f32.  With `return_z1`
     (training under ASY_MLP_BWD_RESIDUALS=1) returns (out, z1 (B,H,W,hid) in
-    x.dtype), the pre-GELU activations K5 then reads."""
+    x.dtype), the pre-GELU activations K5 then reads.  On the card the form
+    without z1 goes through the registered operator `asy_vrnet::mlp_block`
+    (`ops/custom_ops.py`); the z1 form launches the same kernel directly."""
     if x.device.type == "cpu":
         return mlp_block_plain(x, stats, w1, b1, w2, b2, return_z1=return_z1)
     if x.device.type != "cuda":
         raise ValueError(f"mlp_block: unsupported device {x.device}")
+    if return_z1:
+        return mlp_block_launch(x, stats, w1, b1, w2, b2, return_z1=True)
+    return torch.ops.asy_vrnet.mlp_block.default(x, stats, w1, b1, w2, b2)
+
+
+def mlp_block_launch(x, stats, w1, b1, w2, b2, return_z1=False):
+    """K1 on CUDA tensors: checks, geometry, outputs, the launch and its
+    count.  What `mlp_block` returns."""
     from asy_vrnet_tpu_torch.ops import kernels
 
     _check_mlp_args("mlp_block", x, stats, w1, b1, w2)

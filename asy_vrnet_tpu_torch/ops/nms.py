@@ -7,7 +7,10 @@ every same-class anchor with IoU strictly above the threshold.  That is
 greedy descending-score NMS, the first `max_out` boxes of torchvision's
 result.  Rounds stop early once no image has a live anchor left; the output
 keeps its (B, max_out) shape with invalid slots masked, so kept sets match
-the JAX package's `nms_fixed` exactly.
+the JAX package's `nms_fixed` exactly.  `fixed_rounds=True` runs all
+`max_out` rounds with no host read (for `torch.export` and graph capture):
+once no image has a live anchor, a round writes index 0 and keep False and
+leaves `live` as it was, so the result is the same.
 """
 from __future__ import annotations
 
@@ -15,10 +18,12 @@ import torch
 
 
 def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
-              valid: torch.Tensor, iou_threshold: float, max_out: int = 100):
+              valid: torch.Tensor, iou_threshold: float, max_out: int = 100,
+              fixed_rounds: bool = False):
     """Batched greedy NMS.  boxes (B,A,4) xyxy, scores (B,A), classes (B,A)
     int, valid (B,A) bool.  Returns (indices (B,max_out) int64, keep (B,max_out)
-    bool); invalid slots have index 0 and keep False."""
+    bool); invalid slots have index 0 and keep False.  `fixed_rounds`: no
+    early exit (see the module docstring)."""
     bsz, a = scores.shape
     dev = scores.device
     neg_inf = torch.tensor(float("-inf"), device=dev)
@@ -33,7 +38,7 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
     for r in range(max_out):
         i = torch.argmax(live, dim=1)                       # first max
         ok = live[rows, i] > neg_inf
-        if not bool(ok.any()):
+        if not fixed_rounds and not bool(ok.any()):
             break
         b = boxes[rows, i]                                  # (B, 4)
         bx1, by1, bx2, by2 = (b[:, k:k + 1] for k in range(4))
@@ -52,11 +57,12 @@ def nms_fixed(boxes: torch.Tensor, scores: torch.Tensor, classes: torch.Tensor,
 
 def non_max_suppression(prediction: torch.Tensor, num_classes: int,
                         conf_thres: float = 0.5, nms_thres: float = 0.4,
-                        max_out: int = 100) -> dict[str, torch.Tensor]:
+                        max_out: int = 100,
+                        fixed_rounds: bool = False) -> dict[str, torch.Tensor]:
     """Batched class-aware NMS over decoded predictions (B, A, 5+C)
     (utils/utils_bbox.py:86-131).  Returns a dict of (B, max_out) tensors:
     boxes_xyxy (normalised), scores (obj*cls), obj, class_conf, classes,
-    valid."""
+    valid.  `fixed_rounds`: see `nms_fixed`."""
     boxes_xyxy = torch.cat([prediction[..., :2] - prediction[..., 2:4] / 2.0,
                             prediction[..., :2] + prediction[..., 2:4] / 2.0], -1)
     obj = prediction[..., 4]
@@ -65,7 +71,7 @@ def non_max_suppression(prediction: torch.Tensor, num_classes: int,
     class_pred = torch.argmax(cls_scores, dim=-1)               # first max
     score = obj * class_conf
     idx, keep = nms_fixed(boxes_xyxy, score, class_pred, score >= conf_thres,
-                          nms_thres, max_out)
+                          nms_thres, max_out, fixed_rounds)
     take = lambda t: torch.gather(t, 1, idx)  # noqa: E731
     return {
         "boxes_xyxy": torch.gather(boxes_xyxy, 1, idx[..., None].expand(-1, -1, 4)),

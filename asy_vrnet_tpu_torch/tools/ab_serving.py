@@ -2,7 +2,7 @@
 the mixer half's backward (K6, K6r), for comparing two checkouts of the
 port on one card.
 
-    cd <checkout> && python <this file> {check|time|time-bwd|forward|bits} [--tag NAME]
+    cd <checkout> && python <this file> {check|time|time-bwd|forward|bits|dispatch} [--tag NAME]
 
 The port is imported from the current directory, so one copy of this file
 measures any checkout whose `ops/block.py`, `ops/kernels.py` and
@@ -22,6 +22,13 @@ prints one line per record, `AB {json}`, with the tag.
   a profiler trace, CUDA-event ms per launch (20 launches), and the host's
   microseconds per wrapper call (200 calls without a synchronise, median of
   5).
+- dispatch (a checkout with `ops/custom_ops.py`): the host's
+  microseconds per call of K2 and K1 through the registered operators
+  (`torch.ops.asy_vrnet.*`, what `block.mixer_block` and `block.mlp_block`
+  call on the card) and through the launch they wrap, called directly
+  (`block.mixer_block_launch`, `block.mlp_block_launch`), at the 7 shapes,
+  batch 8, bf16, in one process, alternating (op, direct, direct, op):
+  200 calls without a synchronise, median of 5, each.
 - time-bwd: K6 (fed K2's residual pack) and K6r at the 7 shapes, batch 16
   (the train batch), bf16: per launch of the wrapper, the device ms of the
   main kernel, of the dxn epilogue and of the wrapper's torch sums from a
@@ -57,8 +64,18 @@ prints one line per record, `AB {json}`, with the tag.
   per train step x ms).  `--only k6,k5,k7,k3,k4` picks families (default:
   all).
 - forward: the r05 weights (`--weights`, by default the checkout's) in
-  nano coc_small at 512^2, bf16; CUDA-event ms per forward at batch 8 and
-  32, 5 repeats of 10 forwards.
+  nano coc_small at 512^2, bf16; per forward at batch 8 and 32
+  (`--batches`): CUDA-event ms (5 repeats of 10 forwards), the host's wall
+  ms (10 forwards between two synchronises), and the device busy ms and
+  device operations from a trace of 5 forwards.
+- route (a checkout with `ops/custom_ops.py`): the same forward with K2
+  and K1 reached through the registered operators and with the launches
+  they wrap called directly, alternating (op, direct, direct, op) 6 times
+  in one process: CUDA-event ms of 10 forwards each; the host's ms to
+  issue one forward (100 each way, alternating, from an idle card;
+  quartiles), with the garbage collector on and off, and again with each
+  K2 and K1 call timed inside the forward (µs a call); and each way's
+  device busy ms from a trace.
 - bits: K7's output and assignment and K7b's outputs and assignment at the
   four stochastic-depth shapes, batch 16, f32 and bf16 (seeded inputs), and
   the fused seg loss's value, f_score and d logits (K4, K4b) on the k4
@@ -558,29 +575,173 @@ def bits(dev, emit, save=None, compare=None, batch=16):
                     "max_abs": (a.float() - other[key][n].float()).abs().max().item()}
                 for n, a in tensors.items()}})
 
-def forward(dev, emit, weights=R05):
+def dispatch(dev, emit):
+    for (name, b, h, w, c, heads, d, fold, hid, calls) in SHAPES:
+        n, mixer, mlp = _weights(c, heads * d, hid, 0)
+        x = n(b, h, w, c).to(dev, torch.bfloat16)
+        st = block.gn1_stats(x)
+        mw, lw = _cast(mixer, torch.bfloat16, dev), _cast(mlp, torch.bfloat16, dev)
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        fns = {"k2_op": lambda: torch.ops.asy_vrnet.mixer_block.default(
+                   x, st, *mw, heads, fold, fold, 2, 2),
+               "k2_direct": lambda: block.mixer_block_launch(x, st, *mw, **kw),
+               "k1_op": lambda: torch.ops.asy_vrnet.mlp_block.default(x, st, *lw),
+               "k1_direct": lambda: block.mlp_block_launch(x, st, *lw)}
+        rec = {"mode": "dispatch", "shape": name, "calls": calls}
+        for k in ("k2", "k1"):
+            us = {"op": [], "direct": []}
+            for way in ("op", "direct", "direct", "op"):
+                us[way].append(_host_us(fns[f"{k}_{way}"]))
+            rec.update({f"{k}_{way}_us": v for way, v in us.items()})
+        emit(rec)
+
+
+def _r05_model(dev, weights):
     from asy_vrnet_tpu_torch.config import ModelConfig
     from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
 
     cfg = ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
                       input_size=(512, 512), seg_signed_logits=True)
-    model = create_model(cfg, weights=weights)
-    for bs in (8, 32):
-        r = np.random.default_rng(bs)
-        img = torch.from_numpy(r.standard_normal((bs, 512, 512, 3)).astype(np.float32)).to(dev)
-        rad = torch.from_numpy(r.random((bs, 512, 512, 4)).astype(np.float32)).to(dev)
+    return create_model(cfg, weights=weights)
+
+
+def _forward_fn(model, bs, dev):
+    r = np.random.default_rng(bs)
+    img = torch.from_numpy(r.standard_normal((bs, 512, 512, 3)).astype(np.float32)).to(dev)
+    rad = torch.from_numpy(r.random((bs, 512, 512, 4)).astype(np.float32)).to(dev)
+
+    def fn():
         with torch.no_grad():
-            ms = [cuda_ms(lambda: model(img, rad), 10, warmup=2 if i == 0 else 0)
-                  for i in range(5)]
-        emit({"mode": "forward", "bs": bs, "ms": ms})
+            return model(img, rad)
+    return fn
+
+
+def _busy(fn, iters=5):
+    """(device busy ms, device operations) per fn() call, from one trace: the
+    kernels', copies' and memsets' summed time (one stream, so no overlap).
+    A trace may hold one call fewer than it ran (see `profiling.traced`):
+    the calls it holds are counted by K2's launches, 27 a forward."""
+    with tempfile.TemporaryDirectory() as d:
+        traced(lambda: [fn() for _ in range(iters)], d, on_card=True)
+        with open(os.path.join(d, "trace.json")) as fh:
+            ev = [e for e in json.load(fh)["traceEvents"]
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    calls = sum("mixer_block_kernel" in e["name"] for e in ev) / 27 or 1
+    return sum(e["dur"] for e in ev) / calls / 1e3, len(ev) / calls
+
+
+def _host_ms(fn, iters=10):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def forward(dev, emit, weights=R05, batches=(8, 32)):
+    model = _r05_model(dev, weights)
+    for bs in batches:
+        fn = _forward_fn(model, bs, dev)
+        ms = [cuda_ms(fn, 10, warmup=2 if i == 0 else 0) for i in range(5)]
+        busy, ops = _busy(fn)
+        emit({"mode": "forward", "bs": bs, "ms": ms, "host_ms": _host_ms(fn),
+              "busy_ms": busy, "device_ops": ops})
+
+
+def _issue_ms(fn, ways, n, gc_on):
+    """{way: [the host's ms to issue one forward]}, n forwards each way,
+    alternating, each started on an idle card; `gc_on` False: Python's
+    cyclic garbage collector off while they run."""
+    import gc
+
+    issue = {w: [] for w in ways}
+    if not gc_on:
+        gc.collect()
+        gc.disable()
+    try:
+        for i in range(n):
+            for way in (("op", "direct") if i % 2 else ("direct", "op")):
+                block.mixer_block, block.mlp_block = ways[way]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                issue[way].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+    finally:
+        gc.enable()
+    return issue
+
+
+def route(dev, emit, weights=R05, batches=(8, 32), rounds=6, issues=100):
+    """The forward with K2 and K1 reached through the registered operators
+    (what `block.mixer_block` / `block.mlp_block` do on the card) and with
+    the launches they wrap called directly, in one process: `rounds` x (op,
+    direct, direct, op) of 10 forwards each by CUDA events; then `issues`
+    forwards each way, alternating, each started on an idle card and timed
+    by the host's clock until the call returns (the host's ms to issue a
+    forward: the card runs a forward in less time than the host takes to
+    issue it, so no launch waits for room in the queue), as quartiles, with
+    Python's garbage collector on and off; then the same with each K2 and
+    K1 call timed inside the forward (µs a call, quartiles); then one trace
+    each way for the device busy time."""
+    op = (block.mixer_block, block.mlp_block)
+    direct = (lambda x, *a, **kw: block.mixer_block_launch(x, *a, **kw),
+              lambda x, *a, **kw: block.mlp_block_launch(x, *a, **kw))
+    ways = {"op": op, "direct": direct}
+    call_us = {w: {"k2": [], "k1": []} for w in ways}
+
+    def timed(fn, into):
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            into.append((time.perf_counter() - t0) * 1e6)
+            return out
+        return call
+
+    timed_ways = {w: (timed(f[0], call_us[w]["k2"]), timed(f[1], call_us[w]["k1"]))
+                  for w, f in ways.items()}
+    model = _r05_model(dev, weights)
+    try:
+        for bs in batches:
+            fn = _forward_fn(model, bs, dev)
+            ms = {"op": [], "direct": []}
+            for i in range(rounds):
+                for way in ("op", "direct", "direct", "op"):
+                    block.mixer_block, block.mlp_block = ways[way]
+                    before = block.LAUNCHES["mixer_block"]
+                    ms[way].append(cuda_ms(fn, 10, warmup=2 if i == 0 else 1))
+                    assert block.LAUNCHES["mixer_block"] - before == 27 * (
+                        10 + (2 if i == 0 else 1)), "a forward skipped K2"
+            rec = {"mode": "route", "bs": bs}
+            for tag, wset in (("", ways), ("_calls", timed_ways)):
+                for gc_on in (True, False):
+                    issue = _issue_ms(fn, wset, issues, gc_on)
+                    for way, v in issue.items():
+                        key = f"{way}_issue{tag}{'' if gc_on else '_nogc'}_ms"
+                        rec[key] = np.percentile(v, [25, 50, 75]).tolist()
+            for way in ("op", "direct"):
+                rec[f"{way}_call_us"] = {k: np.percentile(v, [25, 50, 75]).tolist()
+                                         for k, v in call_us[way].items()}
+                block.mixer_block, block.mlp_block = ways[way]
+                rec[f"{way}_ms"] = ms[way]
+                rec[f"{way}_busy_ms"], rec[f"{way}_device_ops"] = _busy(fn)
+            emit(rec)
+            for v in call_us.values():
+                for times in v.values():
+                    times.clear()
+    finally:
+        block.mixer_block, block.mlp_block = op
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("mode", choices=("check", "time", "time-bwd", "forward", "bits"))
+    ap.add_argument("mode", choices=("check", "time", "time-bwd", "forward", "bits",
+                                     "dispatch", "route"))
     ap.add_argument("--tag", default=os.path.basename(os.getcwd()))
     ap.add_argument("--weights", default=R05,
-                    help="forward, time-bwd k3: the r05 weights (.npz)")
+                    help="forward, route, time-bwd k3: the r05 weights (.npz)")
+    ap.add_argument("--batches", default="8,32", help="forward, route: the batch sizes")
     ap.add_argument("--only", default="k6,k5,k7,k3,k4",
                     help="time-bwd: the kernel families to time (k6, k5, k7, k3, k4)")
     ap.add_argument("--save", help="bits: write K7's, K7b's, K4's and K4b's outputs to "
@@ -596,14 +757,17 @@ def main(argv=None):
         print("AB " + json.dumps({**rec, "tag": args.tag}), flush=True)
 
     dev = torch.device("cuda")
+    batches = tuple(int(b) for b in args.batches.split(","))
     if args.mode == "forward":
-        forward(dev, emit, args.weights)
+        forward(dev, emit, args.weights, batches)
+    elif args.mode == "route":
+        route(dev, emit, args.weights, batches)
     elif args.mode == "time-bwd":
         time_bwd(dev, emit, only=tuple(args.only.split(",")), weights=args.weights)
     elif args.mode == "bits":
         bits(dev, emit, args.save, args.compare)
     else:
-        {"check": check, "time": timing}[args.mode](dev, emit)
+        {"check": check, "time": timing, "dispatch": dispatch}[args.mode](dev, emit)
 
 
 if __name__ == "__main__":

@@ -141,7 +141,28 @@ Phases (each raises on failure; nothing is caught):
      steps; `last_epoch_weights.npz` loads strictly into a new model.  Per
      epoch (host clock): wall seconds, the train loop's images/s, the share
      spent waiting on the loader (inside `device_prefetch`), and which npz
-     reader ran.
+     reader ran;
+ 16. inference and offline evaluation (`check_inference`): r05's weights on
+     phase 15's set through the CLIs' `main`s in this process (signed seg
+     logits, raw radar, as r05 was trained): get_map's AP50 and get_miou's
+     mIoU >= 0.95 and within 0.01 of the training callbacks on the same
+     weights and set at batch 1 (phase 15's, at batch 8, printed beside:
+     the model's radar gate min-maxes over the whole batch, so an image's
+     outputs depend on its batch); predict's predict, heatmap, dir_predict
+     and map_txt modes (the last two on 8 images; map_txt's files agree
+     with get_map's detection-results) and fps on the
+     host clock and by CUDA events; predict_seg's predict and fps; the
+     export mode (`torch.export`: its time; the program loaded again holds
+     27 asy_vrnet.mixer_block and 27 asy_vrnet.mlp_block nodes and no plain
+     twin, and gives the eager graph's detections and its seg probabilities
+     within 1e-6); the fused pipeline at batch 8 (frames, and one point a
+     non-zero radar pixel; ms a batch by CUDA events) against the same batch
+     preprocessed on the host, and frame by frame against Detector.detect on
+     the same maps (>= 95% of the reference's boxes matched at IoU >= 0.9
+     with the same class); Detector.detect at batch 1 (wall and profiled device
+     time a request) and decode + NMS alone, early exit and fixed rounds.
+     Every entry point launches K2 and K1 27 times a forward and no other
+     kernel (counters reset just before each, read just after).
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -1392,6 +1413,317 @@ def check_train_cli(dev):
             "seconds": total}
 
 
+# phase 16: inference and offline evaluation on the card, r05's weights on
+# phase 15's 48-image learnable set (the same writer, size and seed), as r05
+# was trained: signed seg logits, raw radar
+INFER_FLAGS = ["--weights", R05, "--seg-signed-logits", "--radar-norm", "none",
+               "--compute-dtype", "bfloat16", "--input-size", "512"]
+INFER_MIN = 0.95          # AP50 and mIoU floors, and
+INFER_SLACK = 0.01        # the distance allowed from the callbacks at batch 1
+FPS_CALLS = 10
+PREDICT_DIR = 8           # images in predict's dir_predict and map_txt runs
+
+
+def check_inference(dev, pre):
+    """Phase 16: the inference and offline-evaluation entry points on the
+    card, each through its CLI `main` in this process (or its function),
+    with the launch counters reset just before and read just after:
+    get_map (AP50) and get_miou (mIoU) above INFER_MIN and within
+    INFER_SLACK of the training callbacks run here on the same weights and
+    set at batch 1, printed beside phase 15's (`pre`, batch 8): the model
+    min-maxes the radar gate over the whole batch (`data_normal`, a parity
+    quirk of the reference), so an image's outputs depend on the images it
+    is batched with, and get_map and get_miou take one image at a time;
+    predict in the predict, heatmap, dir_predict and map_txt modes (the
+    last two on PREDICT_DIR images; map_txt's files equal get_map's
+    detection-results) and fps on both
+    clocks; predict_seg predict and fps; the export mode (time; the saved
+    program loaded again holds 27 + 27 operator nodes and no plain twin,
+    and gives the eager graph's bits); the fused pipeline at batch 8 on
+    the set's frames and points made from its radar maps (ms a batch),
+    against the same batch letterboxed and normalised on the host through
+    the same forward, decode and NMS, and, one frame at a time, against
+    Detector.detect on the same maps (each: >= 95% of the reference's boxes
+    matched at IoU >= 0.9 with the same class; seg probabilities sum to 1);
+    Detector.detect at batch 1, wall and device time per request, and the
+    post-process alone.  K2 and K1 launch 27 times per forward in every
+    entry point, no other kernel."""
+    import glob
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from asy_vrnet_tpu_torch.cli import get_map, get_miou, predict, predict_seg
+    from asy_vrnet_tpu_torch.config import Config, ModelConfig
+    from asy_vrnet_tpu_torch.data.dataset import (
+        DataLoader,
+        WaterScenesDataset,
+        read_annotation_file,
+    )
+    from asy_vrnet_tpu_torch.data.synthetic import write_learnable_voc_dataset
+    from asy_vrnet_tpu_torch.infer.export import ServingGraph, decode_and_nms, load_exported
+    from asy_vrnet_tpu_torch.infer.pipeline import build_fused_pipeline
+    from asy_vrnet_tpu_torch.infer.predictor import Detector
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.ops import block, simota_fused
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
+    from asy_vrnet_tpu_torch.ops import mixer_ablate as ma
+    from asy_vrnet_tpu_torch.ops.boxes import correct_boxes
+    from asy_vrnet_tpu_torch.train import callbacks
+    from asy_vrnet_tpu_torch.train.state import float_state
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms, profile_calls
+
+    t_phase = time.time()
+    counters = (block, cf, segf, simota_fused, ma)
+    work = tempfile.mkdtemp(prefix="chip_smoke_infer_")
+    out = {"entry_points": {}}
+
+    def launches():
+        return {k: v for m in counters for k, v in m.LAUNCHES.items()}
+
+    def entry(name, forwards, fn):
+        """Run fn() with the counters reset: K2 and K1 27 per forward, no
+        other kernel.  -> (fn's result, seconds)."""
+        reset_launches(*counters)
+        t0 = time.time()
+        res = fn()
+        torch.cuda.synchronize()
+        sec = time.time() - t0
+        got = launches()
+        want = dict.fromkeys(got, 0)
+        want.update(mixer_block=27 * forwards, mlp_block=27 * forwards)
+        check(got == want, f"{name}: launches {got}, expected {want}")
+        out["entry_points"][name] = {"forwards": forwards, "seconds": sec,
+                                     "mixer_block": got["mixer_block"],
+                                     "mlp_block": got["mlp_block"]}
+        log(f"[inference {name}] {sec:.3f} s, {forwards} forwards, launches K2 "
+            f"{got['mixer_block']}, K1 {got['mlp_block']}, other kernels 0")
+        return res, sec
+
+    try:
+        meta = write_learnable_voc_dataset(os.path.join(work, "set"), num_images=48,
+                                           hw=(512, 512))
+        n = 48
+        images = os.path.join(meta["seg_dataset_path"], "JPEGImages")
+        names = sorted(os.listdir(images))
+        ids = [os.path.splitext(x)[0] for x in names]
+        flags = INFER_FLAGS + ["--device", str(dev)]
+        det_flags = flags + ["--classes", meta["classes_path"]]
+
+        # offline evaluation
+        txt = os.path.join(work, "map_txt")
+        res, _ = entry("get_map", n, lambda: get_map.main(
+            ["--val-annotation", meta["annotation_path"], "--radar-root", meta["radar_root"],
+             "--write-txt", txt] + det_flags))
+        ap = res["coco"]["map"]
+        res, _ = entry("get_miou", n, lambda: get_miou.main(
+            ["--val-annotation", meta["annotation_path"], "--radar-root", meta["radar_root"],
+             "--seg-path", meta["seg_dataset_path"], "--out", os.path.join(work, "miou")]
+            + flags))
+        miou = float(np.nanmean(res[1]))
+        cfg = ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+                          input_size=(512, 512), seg_signed_logits=True)
+        model = create_model(cfg, dev, weights=R05)
+        ds = WaterScenesDataset(read_annotation_file(meta["annotation_path"]), (512, 512), 4,
+                                9, meta["radar_root"], meta["seg_dataset_path"], max_boxes=100)
+        one = DataLoader(ds, 1, shuffle=False, workers=2)
+        logs = os.path.join(work, "callbacks")
+        names4 = ["pier", "vessel", "ship", "boat"]
+        cb_ap = callbacks.DetEvalCallback(model, Config(model=cfg), one, names4, logs,
+                                          period=1).on_epoch_end(0, float_state(model))
+        cb_miou = callbacks.SegEvalCallback(model, Config(model=cfg), one, logs,
+                                            period=1).on_epoch_end(0, float_state(model))
+        log(f"[inference] get_map AP50 {ap:.4f}, get_miou mIoU {miou:.4f}; the callbacks on "
+            f"the same weights and set at batch 1: AP50 {cb_ap:.4f}, mIoU {cb_miou:.4f}; at "
+            f"batch 8 (phase 15): AP50 {pre['ap50']:.4f}, mIoU {pre['miou']:.4f}")
+        check(ap >= INFER_MIN and abs(ap - cb_ap) <= INFER_SLACK, f"AP50 {ap} vs {cb_ap}")
+        check(miou >= INFER_MIN and abs(miou - cb_miou) <= INFER_SLACK,
+              f"mIoU {miou} vs {cb_miou}")
+        out.update(ap50=ap, miou=miou, callbacks_batch1={"ap50": cb_ap, "miou": cb_miou},
+                   callbacks_batch8=pre)
+
+        # predict, every mode but video (cv2) and export (below)
+        first = os.path.join(images, names[0])
+        radar0 = os.path.join(meta["radar_root"], ids[0] + ".npz")
+        pdir = os.path.join(work, "predict")
+
+        def run_predict(mode, image, radar, extra=()):
+            return predict.main(["--mode", mode, "--image", image, "--radar", radar,
+                                 "--out", os.path.join(pdir, mode), *extra] + det_flags)
+
+        entry("predict", 1, lambda: run_predict("predict", first, radar0))
+        heat, _ = entry("heatmap", 1, lambda: run_predict("heatmap", first, radar0))
+        check(heat.shape == (512, 512) and 0.0 <= heat.min() and heat.max() <= 1.0, "heatmap")
+        # the directory modes on the set's first PREDICT_DIR images
+        sub = os.path.join(work, "predict_images")
+        os.makedirs(sub)
+        for x in names[:PREDICT_DIR]:
+            shutil.copy(os.path.join(images, x), sub)
+        entry("dir_predict", PREDICT_DIR, lambda: run_predict("dir_predict", sub,
+                                                              meta["radar_root"]))
+        entry("map_txt", PREDICT_DIR, lambda: run_predict("map_txt", sub, meta["radar_root"]))
+        check(sorted(os.listdir(os.path.join(pdir, "dir_predict"))) == names[:PREDICT_DIR],
+              "dir_predict")
+        same = 0
+        for i in ids[:PREDICT_DIR]:
+            with open(os.path.join(pdir, "map_txt", i + ".txt")) as f:
+                a = [line.split() for line in f.read().splitlines()]
+            with open(os.path.join(txt, "detection-results", i + ".txt")) as f:
+                b = [line.split() for line in f.read().splitlines()]
+            check(len(a) == len(b) and all(
+                x[0] == y[0] and abs(float(x[1]) - float(y[1])) <= 1e-4
+                and max(abs(int(u) - int(v)) for u, v in zip(x[2:], y[2:])) <= 1
+                for x, y in zip(a, b)), f"map_txt {i} against get_map's detections")
+            same += a == b
+        log(f"[inference] map_txt: {PREDICT_DIR} files agree with get_map's detection-results "
+            f"({same} identical)")
+        fps = {}
+        for clock, extra in (("host", ()), ("device", ("--device-time",))):
+            calls = 1 + FPS_CALLS if clock == "host" else 1 + 3 * FPS_CALLS
+            fps[clock], _ = entry(f"fps {clock}", calls, lambda extra=extra: run_predict(
+                "fps", first, radar0, ("--test-interval", str(FPS_CALLS), *extra)))
+        seg_flags = ["--image", first, "--radar", radar0, "--out",
+                     os.path.join(work, "predict_seg")] + flags
+        entry("predict_seg", 1, lambda: predict_seg.main(["--mode", "predict"] + seg_flags))
+        seg_fps, _ = entry("predict_seg fps", 1 + FPS_CALLS, lambda: predict_seg.main(
+            ["--mode", "fps", "--test-interval", str(FPS_CALLS)] + seg_flags))
+        log(f"[inference fps] detect: {fps['host'] * 1e3:.3f} ms a request by the host "
+            f"clock, {fps['device'] * 1e3:.3f} ms by CUDA events; segment: "
+            f"{seg_fps * 1e3:.3f} ms by the host clock (batch 1)")
+        out.update(fps_s={"detect_host": fps["host"], "detect_device": fps["device"],
+                          "segment_host": seg_fps})
+
+        # export: trace, save, load again, the graph's nodes, the outputs
+        pt2 = os.path.join(work, "asy_vrnet.pt2")
+        _, export_s = entry("export", 0, lambda: run_predict(
+            "export", first, radar0, ("--export-path", pt2)))
+        t0 = time.time()
+        run = load_exported(pt2)
+        load_s = time.time() - t0
+        targets = [str(nd.target) for nd in run.module.graph.nodes if nd.op == "call_function"]
+        nodes = {k: targets.count(f"asy_vrnet.{k}.default") for k in ("mixer_block", "mlp_block")}
+        plain = [t for t in targets if any(k in t for k in ("einsum", "one_hot", "gelu"))]
+        log(f"[inference export] traced and saved in {export_s:.2f} s, loaded in {load_s:.2f} s "
+            f"({os.path.getsize(pt2) / 2 ** 20:.1f} MiB); {len(targets)} ops, operator nodes "
+            f"{nodes}, plain-twin ops {len(plain)}")
+        check(nodes == {"mixer_block": 27, "mlp_block": 27} and not plain, "exported graph")
+        detector = Detector(cfg, ["pier", "vessel", "ship", "boat"], model=model,
+                            radar_norm="none")
+        img0, rad0, _, _ = detector._prep(Image.open(first), np.load(radar0)["arr_0"])
+        (pd, ps), _ = entry("exported program", 1, lambda: run(img0, rad0))
+        with torch.no_grad():
+            rd, rs = ServingGraph(model, cfg)(img0, rad0)
+        equal = all(torch.equal(pd[k], rd[k]) for k in rd) and torch.equal(ps, rs)
+        sdiff = (ps - rs).abs().max().item()
+        log(f"[inference export] loaded program vs eager graph: equal bits {equal}, seg "
+            f"max |diff| {sdiff:.3e}, boxes kept {int(pd['valid'].sum())} / "
+            f"{int(rd['valid'].sum())}")
+        # tolerance: the same kernels on the same inputs; aim and require the
+        # same detections, seg probabilities within 1e-6
+        check(all(torch.equal(pd[k], rd[k]) for k in rd) and sdiff <= 1e-6, "exported outputs")
+        out["export"] = {"export_s": export_s, "load_s": load_s, "ops": len(targets),
+                         "equal_bits": equal, "seg_max_abs": sdiff}
+
+        # the fused pipeline at batch 8 against Detector.detect on the same maps
+        b = 8
+        frames = np.stack([np.asarray(Image.open(os.path.join(images, x)).convert("RGB"))
+                           for x in names[:b]])
+        maps = [np.load(os.path.join(meta["radar_root"], i + ".npz"))["arr_0"] for i in ids[:b]]
+        rows = []
+        for m in maps:                      # one (u, v, r, v, e, p) row per non-zero pixel
+            vv, uu = np.nonzero(np.any(m != 0, axis=0))
+            rows.append(np.concatenate([np.stack([uu, vv], 1).astype(np.float32),
+                                        m[:, vv, uu].T], 1))
+        npts = max(len(r) for r in rows)
+        pts = np.full((b, npts, 6), -1.0, np.float32)
+        valid = np.zeros((b, npts), bool)
+        for k, r in enumerate(rows):
+            pts[k, :len(r)] = r
+            valid[k, :len(r)] = True
+        pipe = build_fused_pipeline(model, cfg, (512, 512), radar_minmax=False)
+        args = [torch.from_numpy(a).to(dev) for a in (frames, pts, valid)]
+        (dets, probs), _ = entry("fused pipeline", 1, lambda: pipe(*args))
+        pipe_ms = cuda_ms(lambda: pipe(*args), 3, warmup=1)
+        check(bool((probs.sum(-1) - 1).abs().max() <= 1e-3), "pipeline seg sums")
+
+        def boxes_of(d, k):
+            keep = d["valid"][k].cpu().numpy()
+            return (correct_boxes(d["boxes_xyxy"][k].cpu().numpy()[keep], (512, 512),
+                                  (512, 512)), d["classes"][k].cpu().numpy()[keep])
+
+        def matched(ref, got):
+            """(reference boxes with a box of their class at IoU >= 0.9, all)."""
+            (rb, rc), (gb, gc) = ref, got
+            return sum(any(iou(x, o) >= 0.9 for o in gb[gc == c]) for x, c in zip(rb, rc)), len(rb)
+
+        # the same batch, letterboxed and normalised on the host
+        host = [detector._prep(Image.fromarray(frames[k]), maps[k])[:2] for k in range(b)]
+        with torch.no_grad():
+            ref_dets, _ = ServingGraph(model, cfg)(torch.cat([h[0] for h in host]),
+                                                   torch.cat([h[1] for h in host]))
+        same = all(torch.equal(dets[k], ref_dets[k]) for k in dets)
+        hits = [matched(boxes_of(ref_dets, k), boxes_of(dets, k)) for k in range(b)]
+        m8, t8 = sum(h for h, _ in hits), sum(t for _, t in hits)
+        # one frame at a time against Detector.detect
+        m1 = t1 = 0
+        for k in range(b):
+            single, _ = pipe(*(a[k:k + 1] for a in args))
+            ref = detector.detect(Image.fromarray(frames[k]), maps[k])
+            h, t = matched((ref["boxes"], ref["classes"]), boxes_of(single, 0))
+            m1, t1 = m1 + h, t1 + t
+        log(f"[inference pipeline] batch {b}, {npts} points an image: {pipe_ms:.3f} ms a "
+            f"batch by CUDA events; against the batch letterboxed on the host: {m8}/{t8} "
+            f"boxes matched (IoU >= 0.9, same class), equal bits {same}; one frame at a time "
+            f"against Detector.detect: {m1}/{t1} matched")
+        check(t8 > 0 and m8 >= 0.95 * t8, f"pipeline vs host batch {m8}/{t8}")
+        check(t1 > 0 and m1 >= 0.95 * t1, f"pipeline vs Detector.detect {m1}/{t1}")
+        out["pipeline"] = {"batch": b, "points": npts, "ms": pipe_ms, "equal_bits_batch": same,
+                           "matched_batch": [m8, t8], "matched_detector": [m1, t1]}
+
+        # Detector.detect at batch 1: wall and device time a request; the
+        # post-process (decode + NMS) alone
+        image, radar = Image.open(first), np.load(radar0)["arr_0"]
+        entry("detect", 21, lambda: [detector.detect(image, radar) for _ in range(21)])
+        t0 = time.perf_counter()
+        for _ in range(20):
+            detector.detect(image, radar)
+        wall = (time.perf_counter() - t0) * 1e3 / 20
+        prof = profile_calls(lambda: detector.detect(image, radar), reps=5)
+        with torch.no_grad():
+            det_maps, _ = model(img0, rad0)
+        post = {}
+        for mode, fixed in (("early exit", False), ("fixed rounds", True)):
+            fn = lambda fixed=fixed: decode_and_nms(  # noqa: E731
+                det_maps, cfg, 0.3, 0.5, 100, fixed_rounds=fixed)
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+            post[mode] = {"host_ms": (time.perf_counter() - t0) * 1e3 / 20,
+                          "events_ms": cuda_ms(fn, 20, warmup=1),
+                          "device_ms": profile_calls(fn, reps=5)["device_ms"]}
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             check=True).stdout.strip()
+        log(f"[inference detect bs=1] {smi}: wall {wall:.3f} ms a request (host clock, "
+            f"letterbox to boxes), profiled wall {prof['wall_ms']:.3f} ms, device busy "
+            f"{prof['device_ms']:.3f} ms ({prof['busy_share']:.3f}), {prof['launches']} "
+            f"launches")
+        for mode, v in post.items():
+            log(f"[inference post-process bs=1 {mode}] host {v['host_ms']:.3f} ms, CUDA events "
+                f"{v['events_ms']:.3f} ms, device busy {v['device_ms']:.4f} ms")
+        out["detect_bs1"] = {"card": smi, "wall_ms": wall, "profile": prof, "post": post}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.time() - t_phase
+    log(f"[inference] phase 16 took {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2207,6 +2539,13 @@ def main() -> int:
         entry["launches_train_cli"] = cli_stats["launches"].get(entry["name"], 0)
     check(all(cli_stats["launches"][k] > 0 for k in CLI_KERNELS), "the CLI ran its kernels")
 
+    # ---- 16. inference and offline evaluation on r05's weights ----
+    infer_stats = check_inference(dev, cli_stats["pre_training"])
+    for entry in report:
+        entry["launches_inference"] = sum(
+            e[entry["name"]] for e in infer_stats["entry_points"].values()
+            if entry["name"] in e)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -2219,7 +2558,7 @@ def main() -> int:
                       "mixer_assignment_agreement_bf16": stats_out["mixer_block"].get("agreement"),
                       "pack_assignment_agreement_bf16": pack_agreement,
                       "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"],
-                      "train_cli": cli_stats}),
+                      "train_cli": cli_stats, "inference": infer_stats}),
           flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(smi, flush=True)

@@ -1236,3 +1236,72 @@ def test_device_prefetch_delivers_the_host_batches(dev):
             if k != "image_id":
                 assert d[k].device.type == "cuda" and d[k].dtype == torch.as_tensor(v).dtype
                 assert torch.equal(d[k].cpu(), torch.as_tensor(v)), k
+
+
+# ---------------------------------------------------------------------------
+# the serving operators (ops/custom_ops.py) and the exported program
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", SHAPES, ids=[s[0] for s in SHAPES])
+@pytest.mark.parametrize("dt", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_operators_give_the_direct_launch_bits(dev, shape, dt):
+    """asy_vrnet::mixer_block and asy_vrnet::mlp_block (what block.mixer_block
+    and block.mlp_block call on the card) against the launch they wrap,
+    called directly: the same bits, one counted launch each."""
+    _, b, h, w, c, heads, d, fold, hid = shape
+    n, mixer, mlp = _weights(c, heads * d, hid, 5)
+    x = n(b, h, w, c).to(dev, dt)
+    st = block.gn1_stats(x)
+    margs, largs = _cast(mixer, dt, dev), _cast(mlp, dt, dev)
+    kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+    before = dict(block.LAUNCHES)
+    out, mom = torch.ops.asy_vrnet.mixer_block.default(x, st, *margs, heads, fold, fold, 2, 2)
+    lout = torch.ops.asy_vrnet.mlp_block.default(x, st, *largs)
+    assert block.LAUNCHES["mixer_block"] == before["mixer_block"] + 1
+    assert block.LAUNCHES["mlp_block"] == before["mlp_block"] + 1
+    ref, rmom = block.mixer_block_launch(x, st, *margs, **kw)
+    lref = block.mlp_block_launch(x, st, *largs)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref) and torch.equal(mom, rmom) and torch.equal(lout, lref)
+    wout, wmom = block.mixer_block(x, st, *margs, **kw)
+    assert torch.equal(wout, ref) and torch.equal(wmom, rmom)
+    assert torch.equal(block.mlp_block(x, st, *largs), lref)
+
+
+def test_exported_program_holds_the_kernels(dev, tmp_path):
+    """nano coc_small at 256^2 (every block fused; at 128^2 p5 is not), bf16,
+    random weights: the program exported on the card holds 27
+    asy_vrnet.mixer_block and 27 asy_vrnet.mlp_block nodes and no plain twin (no einsum, one_hot or gelu node); tracing
+    launches nothing; the loaded program launches 27 + 27 a call and gives
+    the eager graph's bits."""
+    from asy_vrnet_tpu_torch.config import ModelConfig
+    from asy_vrnet_tpu_torch.infer.export import ServingGraph, export_program, load_exported
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+
+    cfg = ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
+                      input_size=(256, 256), seg_signed_logits=True)
+    torch.manual_seed(0)
+    model = create_model(cfg, device=dev)
+    before = dict(block.LAUNCHES)
+    path = export_program(model, cfg, str(tmp_path / "p.pt2"), batch_size=2, conf_thres=0.05,
+                          max_det=20)
+    assert block.LAUNCHES == before
+    run = load_exported(path)
+    for graph in (torch.export.load(path).graph, run.module.graph):
+        targets = [str(nd.target) for nd in graph.nodes if nd.op == "call_function"]
+        assert targets.count("asy_vrnet.mixer_block.default") == 27
+        assert targets.count("asy_vrnet.mlp_block.default") == 27
+        assert not [t for t in targets if any(k in t for k in ("einsum", "one_hot", "gelu"))]
+    g = torch.Generator().manual_seed(1)
+    img = torch.randn(2, 256, 256, 3, generator=g).to(dev)
+    rad = torch.rand(2, 256, 256, 4, generator=g).to(dev)
+    before = dict(block.LAUNCHES)
+    dets, seg = run(img, rad)
+    torch.cuda.synchronize()
+    assert block.LAUNCHES["mixer_block"] - before["mixer_block"] == 27
+    assert block.LAUNCHES["mlp_block"] - before["mlp_block"] == 27
+    with torch.no_grad():
+        ref_dets, ref_seg = ServingGraph(model, cfg, conf_thres=0.05, max_det=20)(img, rad)
+    for k in ref_dets:
+        assert torch.equal(dets[k], ref_dets[k]), k
+    assert torch.equal(seg, ref_seg)

@@ -32,8 +32,10 @@ def test_no_jax_imports(path):
 
 def test_the_walk_covers_the_training_modules_and_the_smoke_script():
     """Every module the train step (module path and fused blocks), the
-    training CLI (data layer, metrics, checkpoints, re-init, fit loop) and
-    the mixer ablation tool run is among the checked sources."""
+    training CLI (data layer, metrics, checkpoints, re-init, fit loop), the
+    mixer ablation tool, inference and offline evaluation (the wrappers,
+    the export with its operators, the fused pipeline and its ops, the
+    predict / evaluation CLIs) run is among the checked sources."""
     have = {str(p.relative_to(ROOT)) for p in SOURCES}
     want = {"chip_smoke.py"} | {f"asy_vrnet_tpu_torch/{m}.py" for m in (
         "ops/losses_seg", "ops/losses_seg_fused", "ops/simota", "ops/simota_fused",
@@ -43,7 +45,10 @@ def test_the_walk_covers_the_training_modules_and_the_smoke_script():
         "models/remat", "utils/profiling", "ops/mixer_ablate", "tools/ablate_mixer_fwd",
         "metrics/map", "metrics/miou", "metrics/plots", "data/augment", "data/native_io",
         "data/dataset", "data/seg_dataset", "utils/init", "train/checkpoint",
-        "train/callbacks", "train/seg_only", "train/loop", "cli/train")}
+        "train/callbacks", "train/seg_only", "train/loop", "cli/train",
+        "ops/resize", "models/neck", "ops/radar", "ops/enhance", "ops/nms", "ops/custom_ops",
+        "infer/export", "infer/predictor", "infer/pipeline", "cli/voc_annotation",
+        "cli/predict", "cli/predict_seg", "cli/get_map", "cli/get_miou")}
     assert want <= have, sorted(want - have)
 
 

@@ -280,3 +280,193 @@ def test_entry_device_defaults_to_card():
         with pytest.raises(RuntimeError):
             resolve_device(None)
     assert resolve_device("cpu").type == "cpu"
+
+
+# ---------------------------------------------------------------------------
+# inference-side ops: bicubic letterbox, adaptive pool, radar projection,
+# SPP, enhancement, fixed-round NMS, the serving operators, the fused pipeline
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("in_hw,out_hw", [((37, 53), (20, 31)), ((12, 9), (40, 33)),
+                                          ((64, 64), (64, 48))])
+def test_bicubic_and_adaptive_pool_match_jax(in_hw, out_hw):
+    """Inputs in [0, 1]: both sides apply the same f32 matrices in the same
+    order (H, then W); atol 1e-6."""
+    x = np.random.default_rng(12).random((2, *in_hw, 3)).astype(np.float32)
+    for jf, tf in ((jr.resize_bicubic_pil, tr.resize_bicubic_pil),
+                   (jr.adaptive_avg_pool, tr.adaptive_avg_pool)):
+        ref = jf(jnp.asarray(x), out_hw)
+        np.testing.assert_allclose(_nhwc(tf(_nchw(x), out_hw)), np.asarray(ref), atol=1e-6)
+    np.testing.assert_array_equal(tr._bicubic_matrix_pil(*in_hw), jr._bicubic_matrix_pil(*in_hw))
+
+
+@pytest.mark.parametrize("src_hw", [(45, 70), (80, 50), (64, 64)])
+def test_device_letterbox_matches_jax(src_hw):
+    from asy_vrnet_tpu.infer.pipeline import device_letterbox as j_letterbox
+
+    from asy_vrnet_tpu_torch.infer.pipeline import device_letterbox
+
+    ims = np.random.default_rng(13).integers(0, 256, (2, *src_hw, 3), dtype=np.uint8)
+    out = device_letterbox(torch.from_numpy(ims), (64, 64))
+    for i in range(2):
+        ref = np.asarray(j_letterbox(jnp.asarray(ims[i]), (64, 64)))
+        np.testing.assert_allclose(out[i].numpy(), ref, atol=1e-5)
+
+
+def test_radar_projection_matches_jax_exactly():
+    """Out-of-image points, invalid rows, u/v at .5 (half to even), two
+    points at one pixel with equal range (both win, each channel the larger
+    value) and one nearer point that beats them."""
+    from asy_vrnet_tpu.ops.radar import project_points_to_rvep as j_project
+    from asy_vrnet_tpu.ops.radar import rvep_from_npz_layout as j_layout
+
+    from asy_vrnet_tpu_torch.ops.radar import project_points_to_rvep, rvep_from_npz_layout
+
+    rng = np.random.default_rng(14)
+    pts = np.zeros((3, 60, 6), np.float32)
+    pts[..., 0] = rng.integers(-3, 19, (3, 60)) + rng.choice([0.0, 0.5, 0.49], (3, 60))
+    pts[..., 1] = rng.integers(-3, 15, (3, 60)) + 0.5
+    pts[..., 2:] = rng.random((3, 60, 4)).astype(np.float32) * 10
+    pts[0, 1, :3] = pts[0, 0, :3] = (4.0, 5.0, 2.0)          # tie at one pixel
+    pts[0, 2, :3] = (4.0, 5.0, 3.0)                            # farther: loses
+    pts[1, 3, :3] = (7.0, 2.0, 5.0)
+    pts[1, 4, :3] = (7.0, 2.0, 1.0)                            # nearer: wins alone
+    valid = rng.random((3, 60)) > 0.2
+    valid[0, :3] = valid[1, 3:5] = True
+    out = project_points_to_rvep(torch.from_numpy(pts), torch.from_numpy(valid), (12, 16))
+    for b in range(3):
+        ref = np.asarray(j_project(jnp.asarray(pts[b]), jnp.asarray(valid[b]), (12, 16)))
+        np.testing.assert_array_equal(out[b].numpy(), ref)
+    tie = out[0, 5, 4].numpy()
+    np.testing.assert_array_equal(tie, np.maximum(pts[0, 0, 2:], pts[0, 1, 2:]))
+    np.testing.assert_array_equal(out[1, 2, 7].numpy(), pts[1, 4, 2:])
+    chw = rng.random((4, 6, 5)).astype(np.float32)
+    np.testing.assert_array_equal(rvep_from_npz_layout(torch.from_numpy(chw)).numpy(),
+                                  np.asarray(j_layout(jnp.asarray(chw))))
+
+
+def test_spatial_pyramid_pooling_matches_flax():
+    from asy_vrnet_tpu.models.neck import SpatialPyramidPooling as JSPP
+
+    from asy_vrnet_tpu_torch.models.neck import SpatialPyramidPooling
+
+    x = np.random.default_rng(15).standard_normal((2, 14, 11, 5)).astype(np.float32)
+    ref = JSPP().apply({}, jnp.asarray(x))
+    out = SpatialPyramidPooling()(_nchw(x))
+    np.testing.assert_allclose(_nhwc(out), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("name", ["dark_channel", "dehaze_dark_channel", "unsharp_mask",
+                                  "ace_enhance"])
+def test_enhance_matches_jax(name):
+    """A bright 6x6 patch makes the dark channel's largest values tie, so the
+    atmospheric light takes the first of the tied pixels (lax.top_k's rule);
+    atol 1e-5."""
+    from asy_vrnet_tpu.ops import enhance as je
+
+    from asy_vrnet_tpu_torch.ops import enhance as te
+
+    img = np.random.default_rng(16).random((70, 90, 3)).astype(np.float32)
+    img[10:16, 20:26] = 1.0
+    ref = np.asarray(getattr(je, name)(jnp.asarray(img)))
+    out = getattr(te, name)(torch.from_numpy(img)).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-5)
+    if name == "dehaze_dark_channel":
+        dark = te.dark_channel(torch.from_numpy(img))
+        a = te._atmospheric_light(torch.from_numpy(img), dark).numpy()
+        np.testing.assert_allclose(
+            a, np.asarray(je._atmospheric_light(jnp.asarray(img), jnp.asarray(dark.numpy()))),
+            atol=1e-7)
+
+
+@pytest.mark.parametrize("max_out", [5, 40, 200])
+def test_fixed_round_nms_equals_early_exit(max_out):
+    rng = np.random.default_rng(17)
+    det = [(rng.standard_normal((3, s, s, 9)) * 1.5).astype(np.float32) for s in (8, 4, 2)]
+    pred = decode_predictions([_t(d) for d in det], (64, 64))
+    pred[2, :, 4] = 0.0                                   # an image with no box
+    eager = non_max_suppression(pred, 4, conf_thres=0.3, nms_thres=0.4, max_out=max_out)
+    fixed = non_max_suppression(pred, 4, conf_thres=0.3, nms_thres=0.4, max_out=max_out,
+                                fixed_rounds=True)
+    assert int(eager["valid"].sum()) > 0 and not bool(eager["valid"][2].any())
+    for k in eager:
+        torch.testing.assert_close(fixed[k], eager[k], rtol=0, atol=0)
+
+
+def test_serving_operators_fake_and_plain_agree():
+    """`torch.library.opcheck` holds each operator's schema and fake against
+    its real implementation on CPU tensors (the plain version), and the
+    operators on the CPU give the wrappers' plain results."""
+    from asy_vrnet_tpu_torch.ops import custom_ops  # noqa: F401
+
+    g = torch.Generator().manual_seed(18)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    x = r(2, 16, 16, 32)
+    st = tb.gn1_stats(x)
+    margs = (x, st, r(32, 32), r(32), r(32, 32), r(32), r(32, 32), r(32),
+             torch.tensor([1.0, 0.0]))
+    geo = (4, 2, 2, 2, 2)
+    largs = (x, st, r(32, 64), r(64), r(64, 32), r(32))
+    torch.library.opcheck(torch.ops.asy_vrnet.mixer_block.default, margs + geo)
+    torch.library.opcheck(torch.ops.asy_vrnet.mlp_block.default, largs)
+    out, mom = torch.ops.asy_vrnet.mixer_block.default(*margs, *geo)
+    ref = tb.mixer_block(*margs, heads=4, fold_h=2, fold_w=2, proposal_h=2, proposal_w=2)
+    torch.testing.assert_close((out, mom), ref, rtol=0, atol=0)
+    torch.testing.assert_close(torch.ops.asy_vrnet.mlp_block.default(*largs),
+                               tb.mlp_block(*largs), rtol=0, atol=0)
+
+
+def test_fused_pipeline_matches_detector():
+    """The fused pipeline (device letterbox, projection, min-max, forward,
+    decode, NMS, softmax) against `Detector.detect` on the same frames and
+    the map projected from the same points: the letterboxes differ (PIL's
+    rounds to uint8), so each Detector box must have a pipeline box of its
+    class at IoU >= 0.9 for at least 90% of the Detector's boxes; the seg
+    probabilities sum to 1 within 1e-4.  (Here all 90 match.)"""
+    from PIL import Image
+
+    from asy_vrnet_tpu_torch.config import ModelConfig
+    from asy_vrnet_tpu_torch.infer.pipeline import build_fused_pipeline
+    from asy_vrnet_tpu_torch.infer.predictor import Detector
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.ops.boxes import correct_boxes
+    from asy_vrnet_tpu_torch.ops.radar import project_points_to_rvep
+
+    torch.manual_seed(19)
+    cfg = ModelConfig(phi="nano", variant="coc_dryrun", compute_dtype="float32",
+                      input_size=(64, 64))
+    model = create_model(cfg, device="cpu")
+    rng = np.random.default_rng(19)
+    src = (48, 80)
+    frames = rng.integers(0, 256, (3, *src, 3), dtype=np.uint8)
+    pts = np.zeros((3, 40, 6), np.float32)
+    pts[..., :2] = rng.random((3, 40, 2)) * 70 - 3
+    pts[..., 2:] = rng.random((3, 40, 4)) * 10
+    valid = np.arange(40)[None] < np.array([[40], [25], [10]])
+    pts[~valid, :2] = -1.0
+    kw = dict(conf_thres=0.05, nms_thres=0.5, max_det=30)
+    pipe = build_fused_pipeline(model, cfg, src, **kw)
+    dets, seg = pipe(torch.from_numpy(frames), torch.from_numpy(pts), torch.from_numpy(valid))
+    np.testing.assert_allclose(seg.sum(-1).numpy(), 1.0, atol=1e-4)
+    assert tuple(seg.shape) == (3, 64, 64, cfg.num_seg_classes)
+    maps = project_points_to_rvep(torch.from_numpy(pts), torch.from_numpy(valid), (64, 64))
+    detector = Detector(cfg, ["a", "b", "c", "d"], model=model, **kw)
+    matched = total = 0
+    for b in range(3):
+        ref = detector.detect(Image.fromarray(frames[b]), maps[b].numpy())
+        keep = dets["valid"][b].numpy()
+        boxes = correct_boxes(dets["boxes_xyxy"][b].numpy()[keep], (64, 64), src)
+        classes = dets["classes"][b].numpy()[keep]
+        for box, cls in zip(ref["boxes"], ref["classes"]):
+            total += 1
+            matched += any(_iou(box, o) >= 0.9 for o in boxes[classes == cls])
+    assert total >= 10
+    assert matched >= 0.9 * total, (matched, total)
+
+
+def _iou(a, b):
+    ih = max(0.0, min(a[2], b[2]) - max(a[0], b[0]))
+    iw = max(0.0, min(a[3], b[3]) - max(a[1], b[1]))
+    inter = ih * iw
+    union = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / max(union, 1e-12)

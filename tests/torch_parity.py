@@ -10,12 +10,10 @@ import jax.numpy as jnp
 
 from asy_vrnet_tpu.config import ModelConfig as JaxModelConfig
 from asy_vrnet_tpu.models.efficient_vrnet import create_model as jax_create_model
-from asy_vrnet_tpu.models.efficient_vrnet import init_model
 
 from asy_vrnet_tpu_torch.config import ModelConfig
 from asy_vrnet_tpu_torch.models.cluster_block import ClusterBlock
 from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
-from asy_vrnet_tpu_torch.utils.weights import state_dict_from_flax
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -33,24 +31,30 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
+@pytest.fixture
+def cli_dryrun_widths(monkeypatch):
+    """The inference CLIs build `coc_small`, as the JAX package's do.  While
+    a test runs, that name takes `coc_dryrun`'s widths, so a CLI loads the
+    weights of the small CPU test models."""
+    from asy_vrnet_tpu_torch.config import COC_VARIANTS
+
+    monkeypatch.setitem(COC_VARIANTS, "coc_small", COC_VARIANTS["coc_dryrun"])
+
+
 def config_kwargs(size: int) -> dict:
     return dict(phi="nano", variant="coc_dryrun", compute_dtype="float32",
                 use_pallas_cluster=True, prestem_s2d=False, input_size=(size, size))
 
 
 def model_pair(size: int):
-    """-> (jax_model, variables, port_model).  Params get N(0, 0.05) noise on
-    top of the init (so LayerScale, GN affine and alpha/beta are far from
-    their identity-ish init values and every block contributes)."""
+    """-> (jax_model, variables, port_model) with the same weights:
+    `noisy_model_pair`'s (the port's initialisation plus N(0, 0.05) noise, so
+    LayerScale, GN affine and alpha/beta are far from their identity-ish
+    init values and every block contributes).  No JAX initialisation is
+    compiled."""
     kw = config_kwargs(size)
-    jm = jax_create_model(JaxModelConfig(**kw))
-    params, bstats = init_model(jm, jax.random.PRNGKey(0), input_size=(size, size))
-    rng = np.random.default_rng(1)
-    params = jax.tree.map(
-        lambda v: np.asarray(v) + rng.normal(0, 0.05, v.shape).astype(np.float32), params)
-    bstats = jax.tree.map(np.asarray, bstats)
-    port = create_model(ModelConfig(**kw), device="cpu")
-    port.load_state_dict(state_dict_from_flax(params, bstats), strict=True)
+    jm, params, bstats, port = noisy_model_pair(JaxModelConfig(**kw), ModelConfig(**kw), size,
+                                                seed=1)
     return jm, {"params": params, "batch_stats": bstats}, port
 
 
