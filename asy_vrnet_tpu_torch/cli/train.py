@@ -1,17 +1,24 @@
 """Training CLI (the port's counterpart of `asy_vrnet_tpu/cli/train.py`;
-reference train.py): the same flags and JSON config, on one card.
+reference train.py): the same flags and JSON config.
 
 Everything is a flag or a JSON config; `--synthetic N` trains end to end on
 a generated dataset (a smoke test of the whole stack).  The port's
 differences: `--device` (the card by default, 'cpu' to run the plain
-PyTorch path; without a card it raises), `--num-devices` above 1 raises (one
-card only), and `--resume` takes the port's own full-state checkpoint.
+PyTorch path; without a card it raises), and `--resume` takes the port's
+own full-state checkpoint.
+
+`--num-devices N` trains data-parallel over N ranks with the JAX package's
+global-batch semantics (`parallel/mesh.py`): 0 means every visible card (1
+with `--device cpu`); above 1 the CLI starts N processes itself, ranks on
+cuda:0..N-1 over NCCL, or N CPU ranks over gloo with `--device cpu`.  The
+global batch (and the frozen phase's) must split evenly over the ranks.
+`--seg-only` trains on one device whatever N is, as the JAX CLI does.
 
   python -m asy_vrnet_tpu_torch.cli.train --synthetic 8 --epochs 2 --batch-size 2 \
       --input-size 64 --save-dir /tmp/run
   python -m asy_vrnet_tpu_torch.cli.train --train-annotation 2007_train.txt \
       --val-annotation 2007_val.txt --classes model_data/waterscenes.txt \
-      --radar-root radar --seg-path . --phi nano --epochs 100
+      --radar-root radar --seg-path . --phi nano --epochs 100 --num-devices 4
 """
 from __future__ import annotations
 
@@ -37,8 +44,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--save-period", type=int, default=10)
     p.add_argument("--eval-period", type=int, default=10)
     p.add_argument("--num-devices", type=int, default=0,
-                   help="cards to train on; 0 and 1 mean one card (data "
-                        "parallelism over more is not ported yet)")
+                   help="data-parallel ranks; 0 = every visible card (1 with "
+                        "--device cpu), 1 = one device")
     p.add_argument("--device", default="cuda",
                    help="torch device: the card (default) or 'cpu'; no "
                         "fallback when the card is missing")
@@ -194,33 +201,45 @@ def resolve_config(args):
     return cfg, class_names
 
 
-def main(argv=None):
-    """Train as the flags say; returns the final train state."""
-    parser = build_argparser()
-    args = parser.parse_args(argv)
-
+def rank_devices(args) -> list[str]:
+    """Each rank's device from --num-devices and --device; raises where they
+    cannot hold."""
     import torch
 
-    from asy_vrnet_tpu_torch.config import show_config
-    from asy_vrnet_tpu_torch.data.dataset import (
-        DataLoader,
-        WaterScenesDataset,
-        device_prefetch,
-        read_annotation_file,
-    )
-    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
-    from asy_vrnet_tpu_torch.models.layers import set_generator
-    from asy_vrnet_tpu_torch.train import checkpoint
-    from asy_vrnet_tpu_torch.train.loop import _mean_metrics, fit
-    from asy_vrnet_tpu_torch.train.state import create_train_state
     from asy_vrnet_tpu_torch.utils.device import resolve_device
-    from asy_vrnet_tpu_torch.utils.weights import flax_from_port, state_dict_from_flax
 
     dev = resolve_device(args.device)
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            f"--num-devices {args.num_devices}: data parallelism over several cards is "
-            "not ported yet; train on one card (--num-devices 1)")
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    n = args.num_devices or (cards if dev.type == "cuda" else 1)
+    if n < 1:
+        raise ValueError(f"--num-devices {args.num_devices}: no device to train on")
+    if dev.type == "cuda" and n > 1:
+        if n > cards:
+            raise ValueError(f"--num-devices {n}: {cards} card(s) visible")
+        return [f"cuda:{i}" for i in range(n)]
+    return [str(dev)] * n
+
+
+def rank_backend(devices: list[str]) -> str:
+    """The process group's backend for ranks on `devices`: NCCL when every
+    rank has a card of its own, else gloo (ranks on the CPU, or ranks that
+    share a card, which NCCL refuses)."""
+    import torch
+
+    ds = [torch.device(d) for d in devices]
+    return "nccl" if all(d.type == "cuda" for d in ds) and len(set(ds)) == len(ds) else "gloo"
+
+
+def main(argv=None):
+    """Train as the flags say; returns the final train state, or None when
+    it started several ranks (rank 0 wrote the outputs)."""
+    parser = build_argparser()
+    args = parser.parse_args(argv)
+    devices = rank_devices(args)
+    if args.seg_only and len(devices) > 1:
+        print(f"[seg-only] trains on one device ({devices[0]}), as the JAX CLI's seg-only "
+              f"step does: --num-devices {len(devices)} is not used")
+        devices = devices[:1]
 
     if args.synthetic:
         from asy_vrnet_tpu_torch.data.synthetic import (
@@ -241,10 +260,74 @@ def main(argv=None):
         args.classes = meta["classes_path"]
         args.radar_root = meta["radar_root"]
         args.seg_path = meta["seg_dataset_path"]
+
+    if len(devices) == 1:
+        return train(args, devices[0])
+    import torch.multiprocessing
+
+    from asy_vrnet_tpu_torch.parallel import mesh
+
+    cfg, _ = resolve_config(args)
+    world, backend = len(devices), rank_backend(devices)
+    tcfg = cfg.train
+    batches = [("--batch-size", tcfg.batch_size)]
+    if tcfg.freeze_epoch > tcfg.init_epoch:
+        batches.append(("freeze_batch_size", tcfg.freeze_batch_size))
+    for what, b in batches:
+        if b % world:
+            raise ValueError(f"{what} {b} does not split over {world} ranks")
+    if any(d.startswith("cuda") for d in devices):
+        from asy_vrnet_tpu_torch.ops import kernels
+
+        kernels.build()             # once, before the ranks load the libraries
+    print(f"training on mesh {{'data': {world}, 'model': 1}}: {world} ranks over "
+          f"{backend} on {', '.join(devices)}")
+    torch.multiprocessing.spawn(_rank_main, nprocs=world, args=(
+        args, devices, backend, f"tcp://127.0.0.1:{mesh.free_port()}"))
+    return None
+
+
+def _rank_main(rank: int, args, devices: list[str], backend: str, init_method: str):
+    import torch
+
+    from asy_vrnet_tpu_torch.parallel import mesh
+
+    dev = mesh.init_rank(rank, len(devices), backend, devices[rank], init_method)
+    try:
+        if dev.type == "cpu":       # the ranks share the host's cores
+            torch.set_num_threads(max(1, torch.get_num_threads() // len(devices)))
+        train(args, dev, rank, len(devices))
+    finally:
+        mesh.shutdown()
+
+
+def train(args, device, rank: int = 0, world: int = 1):
+    """The training run on `device`, as rank `rank` of `world` (a process
+    group of `world` ranks must be up when world > 1); -> the train state."""
+    import torch
+
+    from asy_vrnet_tpu_torch.config import show_config
+    from asy_vrnet_tpu_torch.data.dataset import (
+        DataLoader,
+        WaterScenesDataset,
+        device_prefetch,
+        read_annotation_file,
+    )
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.models.layers import set_generator
+    from asy_vrnet_tpu_torch.train import checkpoint
+    from asy_vrnet_tpu_torch.train.loop import _mean_metrics, fit
+    from asy_vrnet_tpu_torch.train.state import create_train_state
+    from asy_vrnet_tpu_torch.utils.device import resolve_device
+    from asy_vrnet_tpu_torch.utils.weights import flax_from_port, state_dict_from_flax
+
+    parser = build_argparser()
+    dev = resolve_device(device)
+    say = print if rank == 0 else (lambda *a, **k: None)
     seg_subdir = os.path.join("VOC2007", "SegmentationClass")
 
     cfg, class_names = resolve_config(args)
-    print(show_config(cfg))
+    say(show_config(cfg))
 
     torch.manual_seed(cfg.train.seed)           # the port's own default init
     model = create_model(cfg.model, dev)
@@ -254,18 +337,19 @@ def main(argv=None):
     if args.weights_init != "none":
         from asy_vrnet_tpu_torch.utils.init import reinit_params
 
-        print(f"initialize network with {args.weights_init} type")
+        say(f"initialize network with {args.weights_init} type")
         reinit_params(model, cfg.train.seed, args.weights_init, args.init_gain)
     if args.weights:
         src = checkpoint.load_weights(args.weights)
         have = flax_from_port(model.state_dict())
-        params, _, _ = checkpoint.partial_load(have["params"], src.get("params"))
-        bstats, _, _ = checkpoint.partial_load(have["batch_stats"], src.get("batch_stats"))
+        params, _, _ = checkpoint.partial_load(have["params"], src.get("params"), rank == 0)
+        bstats, _, _ = checkpoint.partial_load(have["batch_stats"], src.get("batch_stats"),
+                                               rank == 0)
         model.load_state_dict(state_dict_from_flax(params, bstats), strict=True)
     state = create_train_state(cfg, model, dev)
     if args.resume:
         epoch = checkpoint.restore_checkpoint(args.resume, state)
-        print(f"resumed from {args.resume} at step {state.step} (epoch {epoch})")
+        say(f"resumed from {args.resume} at step {state.step} (epoch {epoch})")
         if args.init_epoch == parser.get_default("init_epoch"):
             cfg = dataclasses.replace(
                 cfg, train=dataclasses.replace(cfg.train, init_epoch=epoch))
@@ -282,7 +366,7 @@ def main(argv=None):
         )
         return DataLoader(
             ds, cfg.train.batch_size, shuffle=shuffle, seed=cfg.train.seed,
-            workers=max(1, cfg.train.num_workers),
+            workers=max(1, cfg.train.num_workers), rank=rank, world=world,
         )
 
     train_loader = mk_loader(cfg.data.train_annotation_path, True, args.augment)
@@ -310,7 +394,12 @@ def main(argv=None):
             eval_variables(state, use_ema=cfg.optim.ema))
         return state
 
-    return fit(cfg, state, train_loader, val_loader, class_names)
+    mesh = None
+    if world > 1:
+        from asy_vrnet_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(world)
+    return fit(cfg, state, train_loader, val_loader, class_names, mesh=mesh)
 
 
 if __name__ == "__main__":

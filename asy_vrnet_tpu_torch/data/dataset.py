@@ -267,7 +267,14 @@ class DataLoader:
 
     The sample work (JPEG/PNG decode, npz parse, letterbox) releases the GIL
     in PIL/numpy/native-IO C code, so `workers` threads overlap it.  A
-    worker's exception reaches the consumer, which re-raises it."""
+    worker's exception reaches the consumer, which re-raises it.
+
+    Data parallelism: `batch_size` is the global batch; rank `rank` of
+    `world` shuffles the same global order (same seed) and loads only its
+    contiguous rows [r*B/n, (r+1)*B/n) of each global batch, as the JAX
+    package's P("data") sharding splits it, so every sample is decoded once
+    over the ranks.  Augmentation draws per sample from (seed, epoch, index)
+    and gives each rank's rows the single loader's values."""
 
     def __init__(
         self,
@@ -278,7 +285,15 @@ class DataLoader:
         prefetch: int = 2,
         drop_last: bool = True,
         workers: int = 4,
+        rank: int = 0,
+        world: int = 1,
     ):
+        if batch_size % world or not 0 <= rank < world:
+            raise ValueError(f"DataLoader: rank {rank} of {world} cannot split a batch of "
+                             f"{batch_size} into equal shards")
+        if world > 1 and not drop_last:
+            raise ValueError("DataLoader: a last partial batch does not split into equal "
+                             "shards; pass drop_last=True for world > 1")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -286,6 +301,8 @@ class DataLoader:
         self.prefetch = prefetch
         self.drop_last = drop_last
         self.workers = workers
+        self.rank = rank
+        self.world = world
 
     def __len__(self) -> int:
         n = len(self.dataset)
@@ -302,6 +319,8 @@ class DataLoader:
             for i in range(0, len(order) - (self.batch_size - 1 if self.drop_last else 0),
                            self.batch_size)
         ]
+        shard = self.batch_size // self.world
+        batches = [idxs[self.rank * shard:(self.rank + 1) * shard] for idxs in batches]
 
         def load_batch(idxs) -> dict:
             if self.workers > 1 and len(idxs) > 1:

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from asy_vrnet_tpu_torch.ops.block import gn1_stats
 from asy_vrnet_tpu_torch.ops.resize import global_avg_pool
+from asy_vrnet_tpu_torch.parallel import collectives
 
 
 def channel_shuffle(x: torch.Tensor, groups: int = 2) -> torch.Tensor:
@@ -89,10 +90,20 @@ def bn_train(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     batch-stat form is written out.  Moments are f32, var = E[x^2] - E[x]^2.
     f32: flax nn.BatchNorm (variance clipped at 0, (x - mean) * mul + bias).
     bf16: the JAX package's fast form (`layers.py::_s2d_batchnorm`): one
-    x*mul + add in the compute dtype, no clip."""
+    x*mul + add in the compute dtype, no clip.
+
+    In a parallel step the moments are the global batch's, as under GSPMD:
+    the ranks' shards are of one size, so the mean over the group of their
+    moments (`collectives.synced_sums`, whose backward sums the ranks' parts
+    as SyncBatchNorm's does).  The running stats then get the global
+    moments too, on every rank alike."""
     xf = x.float()
     mean = xf.mean(dim=(0, 2, 3))
-    var = (xf * xf).mean(dim=(0, 2, 3)) - mean * mean
+    m2 = (xf * xf).mean(dim=(0, 2, 3))
+    group = collectives.active()
+    if group is not None:
+        mean, m2 = (t / group.size for t in collectives.synced_sums(mean, m2))
+    var = m2 - mean * mean
     shape = (1, -1, 1, 1)
     if x.dtype == torch.float32:
         var = var.clamp_min(0.0)
@@ -175,9 +186,12 @@ class GroupNorm1(nn.GroupNorm):
 def _bernoulli(shape, keep: float, like: torch.Tensor,
                generator: torch.Generator | None) -> torch.Tensor:
     """Boolean keep-mask drawn on `generator`'s device (the default generator
-    of `like`'s device when None)."""
+    of `like`'s device when None).  In a parallel step the draw is the
+    global batch's and this rank keeps its rows of it
+    (`collectives.draw_rows`)."""
     dev = like.device if generator is None else generator.device
-    return (torch.rand(shape, generator=generator, device=dev) < keep).to(like.device)
+    draw = lambda s: torch.rand(s, generator=generator, device=dev)  # noqa: E731
+    return (collectives.draw_rows(draw, shape) < keep).to(like.device)
 
 
 class Dropout(nn.Module):

@@ -33,11 +33,13 @@ from asy_vrnet_tpu_torch.models.layers import (
     ShuffleAttention,
     channel_shuffle,
 )
+from asy_vrnet_tpu_torch.parallel import collectives
 
 
 def data_normal(x: torch.Tensor) -> torch.Tensor:
-    """Global (whole-tensor, whole-batch) min-max to [0,1] (vr_coc.py:59-67)."""
-    d_min, d_max = x.min(), x.max()
+    """Global (whole-tensor, whole-batch) min-max to [0,1] (vr_coc.py:59-67);
+    in a parallel step over the global batch (`collectives.min_max`)."""
+    d_min, d_max = collectives.min_max(x)
     return (x - d_min) / (d_max - d_min)
 
 

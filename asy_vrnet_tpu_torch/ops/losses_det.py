@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from asy_vrnet_tpu_torch.ops.boxes import decode_for_loss, iou_loss_squared
 from asy_vrnet_tpu_torch.ops.simota_fused import simota_assign_batched
+from asy_vrnet_tpu_torch.parallel import collectives
 
 
 class DetLossAux(NamedTuple):
@@ -63,7 +64,9 @@ def yolox_loss(
         grids, svec, center_radius=center_radius, candidate_k=candidate_k)
 
     fg = assign.fg_mask.float()                                   # (B, A)
-    total_fg = assign.num_fg.sum()
+    # in a parallel step the normaliser and the three sums are the global
+    # batch's, and every rank computes the same loss from them
+    total_fg = collectives.all_reduce_(assign.num_fg.sum())
     num_fg = total_fg.clamp_min(1.0)
     matched = assign.matched_gt                                   # (B, A) int64
 
@@ -80,6 +83,7 @@ def yolox_loss(
     cls_target = (F.one_hot(matched_cls.clamp(0, c - 1), c).float() * in_range
                   * assign.pred_iou[..., None])
     loss_cls = (_bce_with_logits(cls_logits, cls_target).sum(dim=-1) * fg).sum()
+    loss_iou, loss_obj, loss_cls = collectives.global_sums(loss_iou, loss_obj, loss_cls)
 
     total = (iou_weight * loss_iou + obj_weight * loss_obj + cls_weight * loss_cls) / num_fg
     return total, DetLossAux(loss_iou / num_fg, loss_obj / num_fg, loss_cls / num_fg,

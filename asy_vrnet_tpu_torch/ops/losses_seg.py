@@ -16,6 +16,8 @@ Parity notes:
   - dice excludes the trailing ignore channel of the one-hot target;
   - logits are bilinearly resized (align_corners=True) to the target size
     when they differ.
+In a parallel step every sum and count is the global batch's
+(`parallel/collectives.py`), and every rank computes the same loss.
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from typing import Optional
 import torch
 
 from asy_vrnet_tpu_torch.ops.resize import resize_bilinear
+from asy_vrnet_tpu_torch.parallel import collectives
 
 
 def _maybe_resize(logits: torch.Tensor, th: int, tw: int) -> torch.Tensor:
@@ -58,7 +61,8 @@ def ce_loss(logits, target, cls_weights=None, num_classes: int = 21):
     c = logits.shape[-1]
     nll, w = _weighted_ce_elementwise(
         logits.reshape(-1, c), target.reshape(-1), cls_weights, num_classes)
-    return nll.sum() / w.sum().clamp_min(1e-12)
+    num, den = collectives.global_sums(nll.sum(), w.sum())
+    return num / den.clamp_min(1e-12)
 
 
 def focal_loss(logits, target, cls_weights=None, num_classes: int = 21,
@@ -72,8 +76,14 @@ def focal_loss(logits, target, cls_weights=None, num_classes: int = 21,
     logpt = -nll                      # 0 at ignored pixels, matching torch
     pt = torch.exp(logpt)
     loss = -((1.0 - pt) ** gamma) * (logpt * alpha)
-    # parity: mean over all pixels (ignored pixels are zeros in the numerator)
-    return loss.mean()
+    # parity: mean over all pixels (ignored pixels are zeros in the numerator);
+    # in a parallel step over the global batch's (the ranks' shards are of
+    # one size)
+    group = collectives.active()
+    if group is None:
+        return loss.mean()
+    (total,) = collectives.global_sums(loss.sum())
+    return total / (loss.numel() * group.size)
 
 
 def _soft_scores(logits, target_onehot, beta, smooth, threshold=None):
@@ -84,9 +94,10 @@ def _soft_scores(logits, target_onehot, beta, smooth, threshold=None):
     if threshold is not None:
         probs = (probs > threshold).to(probs.dtype)
     tgt = target_onehot.reshape(b, -1, ct)[..., :-1].to(probs.dtype)
-    tp = (tgt * probs).sum(dim=(0, 1))
-    fp = probs.sum(dim=(0, 1)) - tp
-    fn = tgt.sum(dim=(0, 1)) - tp
+    tp, sum_p, sum_t = collectives.global_sums(
+        (tgt * probs).sum(dim=(0, 1)), probs.sum(dim=(0, 1)), tgt.sum(dim=(0, 1)))
+    fp = sum_p - tp
+    fn = sum_t - tp
     b2 = beta ** 2
     return ((1 + b2) * tp + smooth) / ((1 + b2) * tp + b2 * fn + fp + smooth)
 

@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from asy_vrnet_tpu_torch.ops import losses_seg as oracle
+from asy_vrnet_tpu_torch.parallel import collectives
 
 # kernel launches per wrapper; plain-version calls are not counted
 LAUNCHES = {"seg_loss_sums": 0, "seg_loss_dlogits": 0}
@@ -248,6 +249,15 @@ class _FusedSegLoss(torch.autograd.Function):
     @staticmethod
     def forward(ctx, logits, target, cls_weights, hp, round_bf16):
         acc, loss, fscore = seg_loss_sums(logits, target, cls_weights, hp, round_bf16)
+        group = collectives.active()
+        if group is not None:
+            # the global batch's sums; K4b reads them, so each rank's dlogits
+            # are its rows of the global loss's.  The kernel turned this
+            # rank's sums alone into its loss and f_score: over more than
+            # one rank they come from the reduced sums
+            collectives.all_reduce_(acc)
+            if group.size > 1:
+                loss, fscore = _losses_from_acc(acc, logits.shape[-1], hp)
         ctx.save_for_backward(logits, target, cls_weights, acc)
         ctx.hp, ctx.round_bf16 = hp, round_bf16
         ctx.mark_non_differentiable(fscore)

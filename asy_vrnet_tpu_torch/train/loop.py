@@ -1,7 +1,7 @@
 """The training loop: freeze/unfreeze phases, per-epoch LR, val pass,
 callbacks, checkpoints (the port's counterpart of `asy_vrnet_tpu/train/loop.py`;
-reference train.py:563-622 + utils/utils_fit.py:17-226).  One card; the
-multi-card mesh of the JAX package is not ported yet.
+reference train.py:563-622 + utils/utils_fit.py:17-226), on one device or as
+one rank of a data-parallel mesh (`parallel/mesh.py`).
 """
 from __future__ import annotations
 
@@ -10,9 +10,15 @@ import time
 from typing import Callable, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 
 from asy_vrnet_tpu_torch.config import Config
 from asy_vrnet_tpu_torch.data.dataset import DataLoader, device_prefetch
+from asy_vrnet_tpu_torch.parallel.mesh import (
+    build_parallel_eval_step,
+    build_parallel_train_step,
+    replicate_state,
+)
 from asy_vrnet_tpu_torch.train.callbacks import DetEvalCallback, LossHistory, SegEvalCallback
 from asy_vrnet_tpu_torch.train.checkpoint import save_checkpoint, save_weights
 from asy_vrnet_tpu_torch.train.optim import make_lr_schedule, set_learning_rate
@@ -39,23 +45,40 @@ def fit(
     val_loader: Optional[DataLoader] = None,
     class_names: Optional[Sequence[str]] = None,
     log: Callable[[str], None] = print,
+    mesh=None,
 ) -> TrainState:
     """Run epochs `cfg.train.init_epoch` .. `cfg.train.epochs` on the device
-    the state lies on; returns the state (updated in place)."""
+    the state lies on; returns the state (updated in place).
+
+    With `mesh` (`parallel/mesh.py::make_mesh`) this process is one rank of
+    a data-parallel run: the loaders hand out its rows of each global batch
+    (`DataLoader(rank=, world=)`), the state is replicated from rank 0 and
+    the steps run over the mesh's "data" axis (global losses, metrics and
+    gradients).  Rank 0 alone logs, writes the loss history, weights and
+    checkpoints, and runs the evaluation callbacks on the whole val set,
+    unsharded as in the JAX package; the other ranks wait at a barrier."""
     tcfg = cfg.train
     dev = state.log_var.device
     save_dir = tcfg.save_dir
-    os.makedirs(save_dir, exist_ok=True)
+    lead = mesh is None or dist.get_rank() == 0
+    if not lead:
+        log = lambda msg: None  # noqa: E731
 
-    loss_history = LossHistory(os.path.join(save_dir, "loss"), "det_seg")
-    det_cb = seg_cb = None
-    if val_loader is not None and class_names is not None:
+    loss_history = det_cb = seg_cb = None
+    if lead:
+        os.makedirs(save_dir, exist_ok=True)
+        loss_history = LossHistory(os.path.join(save_dir, "loss"), "det_seg")
+    if lead and val_loader is not None and class_names is not None:
+        cb_loader = val_loader if val_loader.world == 1 else DataLoader(
+            val_loader.dataset, val_loader.batch_size, shuffle=False,
+            prefetch=val_loader.prefetch, drop_last=val_loader.drop_last,
+            workers=val_loader.workers)
         det_cb = DetEvalCallback(
-            state.model, cfg, val_loader, class_names, save_dir,
+            state.model, cfg, cb_loader, class_names, save_dir,
             period=tcfg.eval_period, conf_thres=tcfg.eval_conf_thres,
             max_det=tcfg.eval_max_det,
         )
-        seg_cb = SegEvalCallback(state.model, cfg, val_loader, save_dir,
+        seg_cb = SegEvalCallback(state.model, cfg, cb_loader, save_dir,
                                  period=tcfg.eval_period)
 
     freeze = tcfg.freeze_epoch > tcfg.init_epoch
@@ -70,10 +93,16 @@ def fit(
             train_loader.dataset, tcfg.freeze_batch_size,
             shuffle=train_loader.shuffle, prefetch=train_loader.prefetch,
             drop_last=train_loader.drop_last, workers=train_loader.workers,
+            rank=train_loader.rank, world=train_loader.world,
         )
     step_frozen = build_train_step(cfg, freeze_backbone=True, device=dev)
     step_unfrozen = build_train_step(cfg, freeze_backbone=False, device=dev)
     ev_step = build_eval_step(cfg, device=dev)
+    if mesh is not None:
+        step_frozen = build_parallel_train_step(step_frozen, mesh)
+        step_unfrozen = build_parallel_train_step(step_unfrozen, mesh)
+        ev_step = build_parallel_eval_step(ev_step, mesh)
+        replicate_state(state, mesh)
 
     best_val = float("inf")
     for epoch in range(tcfg.init_epoch, tcfg.epochs):
@@ -108,6 +137,9 @@ def fit(
             f"f_score={tm.get('f_score', float('nan')):.3f} "
             f"({time.time() - t0:.1f}s{' frozen' if frozen else ''})"
         )
+        if not lead:
+            dist.barrier()          # rank 0's callbacks and writes
+            continue
         loss_history.append_loss(
             epoch + 1, tm.get("loss", float("nan")), vm.get("loss", float("nan"))
         )
@@ -129,5 +161,8 @@ def fit(
             best_val = vm["loss"]
             save_weights(os.path.join(save_dir, "best_epoch_weights.npz"), variables)
         save_weights(os.path.join(save_dir, "last_epoch_weights.npz"), variables)
-    loss_history.close()
+        if mesh is not None:
+            dist.barrier()
+    if lead:
+        loss_history.close()
     return state

@@ -8,6 +8,13 @@ bf16 compute needs no autocast and no GradScaler.  Losses run in f32, except
 that the fused seg loss reads the model's logits as bf16.  The step updates the
 state in place and returns it.
 
+Wrapped by `parallel/mesh.py::build_parallel_train_step`, the same step runs
+on one rank's rows of the global batch: the model's and the losses' batch
+reductions are then global (`parallel/collectives.py`), so every rank holds
+the global losses and metrics, and after the backward one all-reduce sums the
+ranks' parts of the model gradients into the global batch's.  The
+log-variance's gradient is whole on every rank already and is not summed.
+
 Batch layout (numpy arrays or tensors, fixed shapes):
   image       (B, H, W, 3)  float32 ImageNet-normalised, or uint8
   radar       (B, H, W, 4)  float32, raw
@@ -29,6 +36,7 @@ from asy_vrnet_tpu_torch.data.preprocess import maybe_normalize_image_device
 from asy_vrnet_tpu_torch.ops.losses_det import yolox_loss
 from asy_vrnet_tpu_torch.ops.losses_seg import ce_loss, dice_loss, f_score, focal_loss
 from asy_vrnet_tpu_torch.ops.losses_seg_fused import fused_seg_loss_and_fscore
+from asy_vrnet_tpu_torch.parallel import collectives
 from asy_vrnet_tpu_torch.train.optim import get_learning_rate
 from asy_vrnet_tpu_torch.train.state import TrainState, apply_ema, eval_variables
 from asy_vrnet_tpu_torch.utils.device import resolve_device, same_device
@@ -150,6 +158,7 @@ def build_train_step(cfg: Config, freeze_backbone: bool = False,
             for name, p in model.named_parameters():
                 if name.startswith(FROZEN_PREFIX):
                     p.grad = None
+        collectives.all_reduce_grads(model.parameters())
         optimizer.step()
         if uncertainty:
             # plain SGD on the scalar log-var at the current learning rate
@@ -169,7 +178,8 @@ def build_eval_step(cfg: Config, device: str | torch.device | None = None
                     ) -> Callable[..., dict]:
     """Returns eval_step(state, batch, use_ema=True) -> metrics (val losses +
     f_score) with running BN stats and, by default, the EMA weights
-    (utils/utils_fit.py:144-196).  Nothing in the state changes."""
+    (utils/utils_fit.py:144-196).  Nothing in the state changes.  In a
+    parallel eval step the metrics are the global batch's."""
     dev = resolve_device(device)
 
     @torch.no_grad()

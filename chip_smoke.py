@@ -162,7 +162,22 @@ Phases (each raises on failure; nothing is caught):
      with the same class); Detector.detect at batch 1 (wall and profiled device
      time a request) and decode + NMS alone, early exit and fixed rounds.
      Every entry point launches K2 and K1 27 times a forward and no other
-     kernel (counters reset just before each, read just after).
+     kernel (counters reset just before each, read just after);
+ 17. data-parallel training (`check_parallel`; asy_vrnet_tpu_torch/parallel/)
+     at the CLI's defaults (nano coc_small, fused, r05's weights, 512^2,
+     global batch 16, 2 steps): (a) the parallel step on a one-rank NCCL
+     group gives the plain step's bits and launches (27 of K2, K1, K6, K5,
+     one K4, one K4b, one SimOTA call a step), both under torch's
+     deterministic algorithms, where a second plain run repeats the first's
+     bits; (b) two gloo ranks sharing cuda:0 (NCCL refuses two ranks on one
+     card; gloo's SUM, MIN and MAX on CUDA tensors checked first), 8 rows
+     each, against the plain step, in bf16 and in f32, with each rank's
+     launches, step and all-reduce ms; (c) the training CLI's launcher,
+     `--num-devices 2`, one epoch of 16 learnable images at 128^2: NCCL on
+     cuda:0,1 with two cards, else gloo with both ranks on cuda:0 (the CLI's
+     device choice patched to put them there; the NCCL two-card leg is then
+     reported as not run); rank 0 alone writes the
+     loss line, the callbacks' AP50 and mIoU, the checkpoint and weights.
 
 Tolerances:
   kernel vs plain, f32: max |diff| <= 1e-4 * max(1, max|y|) (mixer, y = out - x)
@@ -220,6 +235,16 @@ Tolerances:
     kernels' and the twins' bf16 forwards differ in the last place here and
     there, which can move one anchor across SimOTA's dynamic-k cut (one of
     ~75 fg anchors is 1.3%); fused vs module path: the losses within 2%.
+  data-parallel step: (a) bit for bit.  (b) bf16: metrics within 1e-2
+    relative (num_fg within 1% or one anchor), the parameter update after
+    steps 1 and 2 within 0.1 and 0.2 of the plain update's norm: bf16
+    rounds GroupNorm's per-sample statistics otherwise at another batch
+    size and the step amplifies it, so the plain step itself on the batch
+    tiled twice (each row twice, the same step in exact arithmetic) moves
+    by 1.09e-1 / 1.49e-1 (printed in the same run, with the plain step on
+    reversed rows and under torch's default algorithms); f32: metrics
+    within 1e-4 (num_fg equal), the update after each step within 5e-3,
+    the BN running stats' within 1e-4.
 Bounds: max(flops / peak, bytes / 3.35 TB/s), flops and bytes counted from
 this run's shapes and data (each input read once, each output written once).
 The peak is 989 TFLOP/s (dense bf16 tensor cores) for the four block kernels
@@ -1724,6 +1749,466 @@ def check_inference(dev, pre):
     return out
 
 
+# phase 17: data-parallel training (asy_vrnet_tpu_torch/parallel/) at the
+# CLI's defaults: nano coc_small, bf16, fused blocks and seg loss, r05's
+# weights, 512^2, global batch 16, 2 steps
+PAR_STEPS = 2
+# the kernels a fused train step launches (SimOTA's count is of wrapper calls)
+# leg (b) runs the CLI's bf16 and, to separate a fault from bf16 rounding,
+# f32
+PAR_DTYPES = ("bfloat16", "float32")
+# leg (b), bf16: the two-rank update after steps 1, 2 against the plain
+# step's, relative to the plain update's norm.  bf16 rounds a per-sample
+# reduction (GroupNorm's statistics) otherwise at another batch size, and
+# the step amplifies it: the same step on the batch tiled twice moves the
+# update by 1.09e-1 / 1.49e-1, the two ranks by 4.87e-2 / 9.02e-2 (PERF.md)
+PAR_BF16_UPDATE_LIMITS = (0.1, 0.2)
+PAR_KERNELS = ("mixer_block", "mlp_block", "mixer_block_bwd", "mlp_block_bwd",
+               "seg_loss_sums", "seg_loss_dlogits", "simota_assign")
+
+
+def _par_setup(dev, dtype="bfloat16"):
+    """(config, train state from r05 at the adaptive lr, the 2 global
+    batches as numpy) of phase 17, computing in `dtype`."""
+    import numpy as np
+
+    from asy_vrnet_tpu_torch.config import Config, LossConfig, ModelConfig
+    from asy_vrnet_tpu_torch.data.synthetic import make_batch
+    from asy_vrnet_tpu_torch.train.optim import adaptive_lr, set_learning_rate
+    from asy_vrnet_tpu_torch.train.state import create_train_state
+
+    cfg = Config(model=ModelConfig(phi="nano", variant="coc_small", compute_dtype=dtype,
+                                   input_size=(512, 512), seg_signed_logits=True,
+                                   use_pallas_cluster=True),
+                 loss=LossConfig(max_boxes=MAX_BOXES, use_pallas_seg=True))
+    state = create_train_state(cfg, device=dev, weights=R05)
+    set_learning_rate(state.optimizer, adaptive_lr(cfg.optim, TRAIN_BATCH)[0])
+    batches = [make_batch(np.random.default_rng(90 + i), TRAIN_BATCH, (512, 512),
+                          max_boxes=MAX_BOXES) for i in range(PAR_STEPS)]
+    return cfg, state, batches
+
+
+def _par_bits(state) -> dict:
+    """The state a step changes, as CPU tensors: parameters and BN stats
+    (`state/`), EMA (`ema/`), the log-variance."""
+    from asy_vrnet_tpu_torch.train.state import float_state
+
+    out = {f"state/{k}": v.detach().cpu().clone() for k, v in float_state(state.model).items()}
+    out.update({f"ema/{k}": v.cpu().clone() for k, v in state.ema.items()})
+    out["log_var"] = state.log_var.detach().cpu().clone()
+    return out
+
+
+def _par_run(state, step, batches, dev, shard=None):
+    """PAR_STEPS steps; -> per step (metrics, launches, step ms and
+    collective ms by CUDA events, all-reduce calls, the state's bits)."""
+    import torch
+
+    from asy_vrnet_tpu_torch.ops import block, simota_fused
+    from asy_vrnet_tpu_torch.ops import cluster_fused as cf
+    from asy_vrnet_tpu_torch.ops import losses_seg_fused as segf
+    from asy_vrnet_tpu_torch.parallel import collectives
+
+    counters = (block, cf, segf, simota_fused)
+    out = []
+    for b in batches:
+        rows = b if shard is None else shard(b)
+        db = {k: torch.from_numpy(v).to(dev) for k, v in rows.items()}
+        torch.cuda.synchronize()
+        reset_launches(*counters)
+        collectives.CALLS["all_reduce"] = 0
+        events = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        with collectives.timed(events):
+            state, m = step(state, db)
+        end.record()
+        torch.cuda.synchronize()
+        launches = {k: v for c in counters for k, v in c.LAUNCHES.items()}
+        out.append({"metrics": {k: v.detach().cpu().clone() for k, v in m.items()},
+                    "launches": launches, "step_ms": start.elapsed_time(end),
+                    "collective_ms": sum(s.elapsed_time(e) for s, e in events),
+                    "all_reduce_calls": collectives.CALLS["all_reduce"],
+                    "bits": _par_bits(state)})
+    return out
+
+
+def _parallel_rank(rank, init_method, out_dir):
+    """Leg (b) of phase 17: rank `rank` of two gloo ranks that share
+    cuda:0.  Checks that gloo's SUM, MIN and MAX all-reduces work on CUDA
+    tensors, then runs the parallel step on its rows of the global
+    batches under torch's deterministic algorithms, in bf16 and in f32;
+    rank 0 saves its state after each step."""
+    import torch
+    import torch.distributed as dist
+
+    from asy_vrnet_tpu_torch.parallel import mesh as pm
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = pm.init_rank(rank, 2, "gloo", torch.device("cuda", 0), init_method)
+    try:
+        ops = {}
+        for name, op, want in (("SUM", dist.ReduceOp.SUM, 3.0), ("MIN", dist.ReduceOp.MIN, 1.0),
+                               ("MAX", dist.ReduceOp.MAX, 2.0)):
+            t = torch.full((3,), rank + 1.0, device=dev)
+            dist.all_reduce(t, op=op)
+            ops[name] = t.tolist()
+            check(t.device == dev and t.tolist() == [want] * 3,
+                  f"gloo {name} all-reduce of CUDA tensors gave {t.tolist()}")
+        mesh = pm.make_mesh(2)
+        res = {"rank": rank, "ops": ops}
+        for dtype in PAR_DTYPES:
+            cfg, state, batches = _par_setup(dev, dtype)
+            pm.replicate_state(state, mesh)
+            step = pm.build_parallel_train_step(build_train_step(cfg, device=dev), mesh)
+            with deterministic_algorithms():
+                res[dtype] = _par_run(state, step, batches, dev,
+                                      shard=lambda b: pm.shard_batch(b, mesh))
+            del state
+            if rank:
+                for st in res[dtype]:
+                    del st["bits"]
+        torch.save(res, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        pm.shutdown()
+
+
+def _par_witnesses(dev):
+    """bf16's rounding, without a process group: the plain step from leg
+    (a)'s start on the same global batches with (a) the rows in reversed
+    order, (b) the batch tiled twice (32 rows, each row twice: the same
+    step in exact arithmetic, with every per-sample reduction at another
+    batch size), under torch's deterministic algorithms.  -> {name: the
+    run's steps}."""
+    import numpy as np
+    import torch
+
+    from asy_vrnet_tpu_torch.ops.block import gn1_stats
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    # where the rounding starts: GroupNorm's per-sample statistics of rows
+    # 0-7 alone and within the 16 rows, at the four stages' shapes
+    g = torch.Generator(device=dev).manual_seed(0)
+    differ = {}
+    for shape in ((16, 16, 128, 128), (16, 32, 64, 64), (16, 80, 32, 32), (16, 128, 16, 16)):
+        x = (torch.randn(shape, generator=g, device=dev) * 3 + 1).to(torch.bfloat16)
+        differ[shape[1:]] = int((gn1_stats(x[:8]) != gn1_stats(x)[:8]).any(dim=1).sum())
+    log(f"[parallel b bf16 witness] GroupNorm statistics (gn1_stats) of 8 rows alone vs "
+        f"within 16, samples whose bits differ (of 8) at (C, H, W): {differ}")
+    cfg, state, batches = _par_setup(dev)
+    step = build_train_step(cfg)
+    rows = {"reversed rows": lambda b: {k: v[::-1].copy() for k, v in b.items()},
+            "tiled twice": lambda b: {k: np.concatenate([v, v]) for k, v in b.items()}}
+    out = {}
+    with deterministic_algorithms():
+        for name, shard in rows.items():
+            out[name] = _par_run(copy.deepcopy(state), step, batches, dev, shard=shard)
+    return out
+
+
+def _launch_row(steps):
+    return [{k: s["launches"][k] for k in PAR_KERNELS} for s in steps]
+
+
+def check_parallel(dev):
+    """Phase 17, three legs at the CLI's defaults (nano coc_small, bf16, fused):
+    (a) the parallel step on a one-rank NCCL group on cuda:0, 2 steps of
+        global batch 16 at 512^2 from r05, against the plain step from the
+        same start and batches, both under torch's deterministic
+        algorithms (a second plain run repeats the first's bits): the same
+        bits (parameters, BN stats, EMA, log-variance, every metric) and
+        the same launches;
+    (b) two gloo ranks sharing cuda:0 (new processes; gloo's SUM, MIN and
+        MAX on CUDA tensors checked first), 8 rows each of the same global
+        batches, against the plain step, both under deterministic
+        algorithms: in bf16 every metric within 1e-2 relative (num_fg
+        within 1% or one anchor) and the parameter update (new - old) after
+        steps 1 and 2 within PAR_BF16_UPDATE_LIMITS of the plain update's
+        norm, printed beside bf16's rounding witnesses (`_par_witnesses`)
+        and the plain step's own difference under default algorithms;
+        in f32 the metrics within 1e-4 (num_fg equal), the update after
+        each step within 5e-3 and the BN stats' within 1e-4; the two ranks'
+        launches equal the plain step's; each rank's step and all-reduce ms
+        by CUDA events;
+    (c) the training CLI's own launcher (`--num-devices 2`): 1 epoch on
+        phase 15's learnable writer, 16 images at 128^2, batch 8, from
+        r05: NCCL on cuda:0,1 with two or more cards, else gloo with both
+        ranks on cuda:0 (the CLI's `rank_devices` patched to put them
+        there, and the NCCL two-card leg reported as not run); rank 0
+        alone writes one loss line, the callbacks' AP50 and mIoU, the
+        checkpoint and weights, which load strictly.
+    -> summary."""
+    t_phase = time.time()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    out = {"card": smi}
+    out["one_rank_nccl"], plain, before, loose = _parallel_one_rank(dev, smi)
+    out["two_rank_gloo"] = _parallel_two_ranks(dev, smi, plain, before, loose)
+    out["cli"] = _parallel_cli(dev, smi)
+    out["seconds"] = time.time() - t_phase
+    log(f"[parallel] phase 17 took {out['seconds']:.1f} s")
+    return out
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic implementations (cuDNN's and the ops' own, e.g.
+    the bilinear upsample's backward, whose default adds with atomics) while
+    the block runs, warn-only; yields the warnings recorded."""
+    import warnings
+
+    import torch
+
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+
+
+def _parallel_one_rank(dev, smi):
+    """Leg (a), under torch's deterministic algorithms (by default the
+    step's backward does not repeat its bits: some torch ops add with
+    atomics): the plain step, a second plain run from the same start (it
+    must repeat the first's bits, or no bit comparison means anything),
+    then the parallel step on a one-rank NCCL group; last, the plain step
+    with the default algorithms, leg (b)'s yardstick.  -> (summary, the
+    plain run's steps, the start's bits, the default-algorithm run's
+    steps)."""
+    import torch
+
+    from asy_vrnet_tpu_torch.parallel import mesh as pm
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    cfg, state, batches = _par_setup(dev)
+    start, again, loose = (copy.deepcopy(state) for _ in range(3))
+    step = build_train_step(cfg)
+    before = _par_bits(state)
+    with deterministic_algorithms() as caught:
+        plain = _par_run(state, step, batches, dev)
+        del state
+        again_bits = _par_run(again, step, batches, dev)[-1]["bits"]
+        del again
+        pm.init_rank(0, 1, "nccl", dev, f"tcp://127.0.0.1:{pm.free_port()}")
+        try:
+            mesh = pm.make_mesh(1)
+            pm.replicate_state(start, mesh)
+            one = _par_run(start, pm.build_parallel_train_step(step, mesh), batches, dev,
+                           shard=lambda b: pm.shard_batch(b, mesh))
+        finally:
+            pm.shutdown()
+        del start
+    warned = sorted({str(w.message)[:160] for w in caught if "determinis" in str(w.message)})
+    # the yardstick of leg (b): the plain step with torch's default algorithms
+    loose_steps = _par_run(loose, step, batches, dev)
+    del loose
+    plain_bits, one_bits = plain[-1]["bits"], one[-1]["bits"]
+    run_to_run = [k for k in plain_bits if not torch.equal(plain_bits[k], again_bits[k])]
+    differ = [k for k in plain_bits if not torch.equal(plain_bits[k], one_bits[k])]
+    metrics_equal = all(torch.equal(p["metrics"][k], o["metrics"][k])
+                        for p, o in zip(plain, one) for k in p["metrics"])
+    log(f"[parallel a] {smi}: plain step launches {_launch_row(plain)}, NCCL one-rank "
+        f"step launches {_launch_row(one)}; all-reduce calls a step "
+        f"{[o['all_reduce_calls'] for o in one]}; determinism warnings {warned}")
+    log(f"[parallel a] entries whose bits differ: NCCL one-rank vs plain {len(differ)} of "
+        f"{len(plain_bits)} {differ[:8]}, plain vs plain again {len(run_to_run)} "
+        f"{run_to_run[:8]}; metrics equal {metrics_equal}")
+    check(not run_to_run, "the plain step repeats its bits under deterministic algorithms")
+    for i, (p, o) in enumerate(zip(plain, one)):
+        log(f"[parallel a] step {i + 1}: plain " + ", ".join(
+            f"{k} {float(v):.6f}" for k, v in p["metrics"].items())
+            + f"; step ms {p['step_ms']:.3f} plain, {o['step_ms']:.3f} NCCL one-rank "
+            f"({o['collective_ms']:.3f} ms in all-reduces) by CUDA events, deterministic "
+            "algorithms")
+    check(_launch_row(plain) == _launch_row(one), "NCCL one-rank launches equal the plain step's")
+    check(all(row[k] == w for row in _launch_row(plain) for k, w in (
+        ("mixer_block", 27), ("mlp_block", 27), ("mixer_block_bwd", 27), ("mlp_block_bwd", 27),
+        ("seg_loss_sums", 1), ("seg_loss_dlogits", 1), ("simota_assign", 1))),
+        f"the fused step's launches {_launch_row(plain)}")
+    check(not differ and metrics_equal, "NCCL one-rank step gives the plain step's bits")
+    summary = {"launches": _launch_row(one), "bits_equal": True,
+               "run_to_run_differ": len(run_to_run),
+               "step_ms": [o["step_ms"] for o in one],
+               "plain_step_ms": [p["step_ms"] for p in plain],
+               "plain_default_algorithms_step_ms": [p["step_ms"] for p in loose_steps],
+               "collective_ms": [o["collective_ms"] for o in one],
+               "all_reduce_calls": [o["all_reduce_calls"] for o in one]}
+    return summary, plain, before, loose_steps
+
+
+def _rel_norm(got: dict, want: dict, before: dict, keys) -> float:
+    """|(got - before) - (want - before)| / |want - before| over `keys`."""
+    import torch
+
+    d_want = torch.cat([(want[k] - before[k]).flatten() for k in keys])
+    d_got = torch.cat([(got[k] - before[k]).flatten() for k in keys])
+    return ((d_got - d_want).norm() / d_want.norm()).item()
+
+
+def _parallel_two_ranks(dev, smi, plain, before, loose):
+    """Leg (b): two gloo ranks sharing cuda:0 against the plain step, both
+    under torch's deterministic algorithms.  bf16 (the CLI's, against (a)'s
+    plain run): metrics within 1e-2, the update after steps 1 and 2 within
+    PAR_BF16_UPDATE_LIMITS of the plain update's norm, printed beside what
+    bf16's rounding alone moves it by: the plain step on the rows in
+    reversed order and on the batch tiled twice (`_par_witnesses`), and
+    the plain step under torch's default algorithms (`loose`).  f32 (2
+    more steps a rank, in the same processes): metrics within 1e-4 (num_fg
+    equal), the update after each step within 5e-3 and the BN running
+    stats' within 1e-4: there bf16's rounding, which differs with the
+    batch size a per-sample reduction sees, cannot hide a fault (local BN
+    moments, a local normaliser or an unsummed gradient move them by
+    percents)."""
+    import torch
+    import torch.multiprocessing
+
+    from asy_vrnet_tpu_torch.parallel import mesh as pm
+    from asy_vrnet_tpu_torch.train.train_step import build_train_step
+
+    witnesses = _par_witnesses(dev)
+    cfg32, state32, batches = _par_setup(dev, "float32")
+    before32 = _par_bits(state32)
+    with deterministic_algorithms():
+        plain32 = _par_run(state32, build_train_step(cfg32), batches, dev)
+    del state32
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    try:
+        t0 = time.time()
+        torch.multiprocessing.spawn(_parallel_rank, nprocs=2,
+                                    args=(f"tcp://127.0.0.1:{pm.free_port()}", work))
+        spawn_s = time.time() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"), weights_only=False)
+                 for r in range(2)]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    out = {"spawn_s": spawn_s}
+    for dtype, want, start in (("bfloat16", plain, before), ("float32", plain32, before32)):
+        for r in ranks:
+            steps = r[dtype]
+            log(f"[parallel b {dtype}] rank {r['rank']} (gloo, cuda:0) {smi}: gloo all-reduce "
+                f"on CUDA tensors {r['ops']}; launches {_launch_row(steps)}; step ms "
+                f"{[round(s['step_ms'], 3) for s in steps]}, all-reduce ms "
+                f"{[round(s['collective_ms'], 3) for s in steps]} in "
+                f"{[s['all_reduce_calls'] for s in steps]} calls (CUDA events, deterministic "
+                "algorithms)")
+            check(_launch_row(steps) == _launch_row(want),
+                  f"rank {r['rank']}'s launches equal the plain step's ({dtype})")
+        got = ranks[0][dtype]
+        worst = 0.0
+        for i, (p, s) in enumerate(zip(want, got)):
+            for k, v in p["metrics"].items():
+                a, b = float(s["metrics"][k]), float(v)
+                if k == "num_fg":
+                    ok = (a == b if dtype == "float32"
+                          else abs(a - b) <= max(0.01 * abs(b), 1.0))
+                else:
+                    worst = max(worst, rel_diff(a, b))
+                    ok = rel_diff(a, b) <= (1e-4 if dtype == "float32" else 1e-2)
+                side = ("" if dtype == "float32" else
+                        f", plain with default algorithms {float(loose[i]['metrics'][k]):.6f}")
+                log(f"[parallel b {dtype}] step {i + 1} {k}: two ranks {a:.6f}, plain "
+                    f"{b:.6f}{side}")
+                check(ok, f"two-rank step {i + 1} {k} ({dtype})")
+            check(all(torch.equal(s["metrics"][k], ranks[1][dtype][i]["metrics"][k])
+                      for k in s["metrics"]), "both ranks hold the same metrics")
+        stats = [k for k in start if k.startswith("state/")
+                 and k.endswith(("running_mean", "running_var"))]
+        params = [k for k in start if k.startswith("state/") and k not in stats]
+        upd = [_rel_norm(s["bits"], p["bits"], start, params) for p, s in zip(want, got)]
+        bn = [_rel_norm(s["bits"], p["bits"], start, stats) for p, s in zip(want, got)]
+        res = {"update_rel_diff": upd, "bn_update_rel_diff": bn, "metric_worst_rel": worst,
+               "launches": _launch_row(got),
+               "step_ms": [[s["step_ms"] for s in r[dtype]] for r in ranks],
+               "collective_ms": [[s["collective_ms"] for s in r[dtype]] for r in ranks],
+               "all_reduce_calls": [s["all_reduce_calls"] for s in got]}
+        side = ""
+        if dtype == "bfloat16":
+            res["witness_update_rel_diff"] = {
+                name: [_rel_norm(s["bits"], p["bits"], start, params) for p, s in zip(want, w)]
+                for name, w in [*witnesses.items(), ("default algorithms", loose)]}
+            side = "; the plain step " + ", ".join(
+                f"{name} {[f'{v:.4e}' for v in d]}"
+                for name, d in res["witness_update_rel_diff"].items())
+            for name, w in witnesses.items():
+                log(f"[parallel b bf16 witness] plain step, {name}: " + "; ".join(
+                    f"step {i + 1} " + ", ".join(f"{k} {float(v):.6f}"
+                                                 for k, v in st["metrics"].items())
+                    for i, st in enumerate(w)))
+        log(f"[parallel b {dtype}] |update - plain update| / |plain update| after steps "
+            f"1..{PAR_STEPS}: two ranks {[f'{v:.4e}' for v in upd]} (BN running stats "
+            f"{[f'{v:.4e}' for v in bn]}){side}; worst metric relative difference {worst:.4e}")
+        if dtype == "bfloat16":
+            check(all(u <= lim for u, lim in zip(upd, PAR_BF16_UPDATE_LIMITS)),
+                  f"the two-rank bf16 update within {PAR_BF16_UPDATE_LIMITS} of the plain one's "
+                  f"norm after steps 1, 2 ({upd})")
+        else:
+            check(max(upd) <= 5e-3 and max(bn) <= 1e-4,
+                  f"the two-rank f32 update within 5e-3 of the plain one's norm ({upd}), "
+                  f"the BN running stats' within 1e-4 ({bn})")
+        out[dtype] = res
+    log(f"[parallel b] two processes spawned and joined in {spawn_s:.1f} s")
+    return out
+
+
+def _parallel_cli(dev, smi):
+    """Leg (c): the CLI's launcher end to end."""
+    import numpy as np
+    import torch
+
+    from asy_vrnet_tpu_torch.cli import train as cli
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+
+    cards = torch.cuda.device_count()
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_cli_")
+    save_dir = os.path.join(work, "logs")
+    argv = ["--synthetic", "16", "--synthetic-learnable", "--input-size", "128", "--epochs", "1",
+            "--batch-size", "8", "--eval-period", "1", "--save-period", "1", "--weights", R05,
+            "--seg-signed-logits", "--num-devices", "2", "--save-dir", save_dir]
+    old_tmp, old_devices = tempfile.tempdir, cli.rank_devices
+    if cards >= 2:
+        leg = "NCCL on cuda:0, cuda:1"
+    else:
+        # the CLI gives ranks that share a card gloo (NCCL refuses them)
+        cli.rank_devices = lambda args: ["cuda:0", "cuda:0"]
+        leg = "gloo with both ranks on cuda:0"
+        log(f"[parallel c] the NCCL two-card leg did not run: {cards} card visible; the CLI's "
+            "launcher runs two gloo ranks on cuda:0 instead")
+    tempfile.tempdir = work                       # the CLI's synthetic set
+    try:
+        t0 = time.time()
+        check(cli.main(argv) is None, "the CLI's launcher returns no state")
+        cli_s = time.time() - t0
+
+        def lines(name):
+            with open(os.path.join(save_dir, name)) as f:
+                return [float(v) for v in f.read().split()]
+
+        losses = lines(os.path.join("loss", "epoch_det_seg.txt"))
+        ap, miou = lines("epoch_map.txt"), lines("epoch_miou.txt")
+        check(len(losses) == len(ap) == len(miou) == 1 and np.isfinite(losses[0]),
+              f"one epoch's loss and metrics, from rank 0 alone: {losses} {ap} {miou}")
+        ck = torch.load(os.path.join(save_dir, "ckpt", "step_1.pt"), map_location="cpu",
+                        weights_only=True)
+        check(ck["step"] == 2, f"the checkpoint's step {ck['step']} (16 images, batch 8)")
+        args = cli.build_argparser().parse_args(argv)
+        create_model(cli.resolve_config(args)[0].model, dev,
+                     weights=os.path.join(save_dir, "last_epoch_weights.npz"))
+    finally:
+        tempfile.tempdir, cli.rank_devices = old_tmp, old_devices
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"[parallel c] the CLI's launcher, {leg}, {smi}: 1 epoch of 16 images at 128^2 in "
+        f"{cli_s:.1f} s (host clock, spawn included); loss {losses[0]:.4f}, AP50 {ap[0]:.4f}, "
+        f"mIoU {miou[0]:.4f}")
+    return {"leg": leg, "seconds": cli_s, "loss": losses[0], "ap50": ap[0], "miou": miou[0],
+            "nccl_two_cards": cards >= 2}
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2546,6 +3031,14 @@ def main() -> int:
             e[entry["name"]] for e in infer_stats["entry_points"].values()
             if entry["name"] in e)
 
+    # ---- 17. data-parallel training: NCCL one rank, two gloo ranks, the CLI ----
+    par_stats = check_parallel(dev)
+    for entry in report:
+        entry["launches_parallel_step"] = par_stats["one_rank_nccl"]["launches"][0].get(
+            entry["name"], 0)
+        entry["launches_parallel_step_per_rank"] = par_stats["two_rank_gloo"]["bfloat16"][
+            "launches"][0].get(entry["name"], 0)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
@@ -2558,7 +3051,8 @@ def main() -> int:
                       "mixer_assignment_agreement_bf16": stats_out["mixer_block"].get("agreement"),
                       "pack_assignment_agreement_bf16": pack_agreement,
                       "simota_fg_agreement": train_stats["simota_assign"]["fg_agreement"],
-                      "train_cli": cli_stats, "inference": infer_stats}),
+                      "train_cli": cli_stats, "inference": infer_stats,
+                      "parallel": par_stats}),
           flush=True)
     print(json.dumps({"kernels": report}), flush=True)
     print(smi, flush=True)

@@ -13,7 +13,12 @@ package:
   - JAX's `DetectionEvaluator` and `MIoUAccumulator` fed the detections and
     argmax maps the port's callbacks computed in the last epoch give the
     `epoch_map.txt` and `epoch_miou.txt` values exactly;
-  - one `--seg-only` epoch and a `--resume` run."""
+  - one `--seg-only` epoch and a `--resume` run;
+  - `--num-devices 2` on the CPU (two gloo ranks the CLI starts itself):
+    rank 0 alone writes one loss history and one `last_epoch_weights.npz`,
+    whose weights equal the one-device run's within atol 1e-5 (the step's
+    bounds in `test_torch_parallel.py`); a batch the ranks cannot split is
+    refused, and `--seg-only` trains on one device whatever N is."""
 import contextlib
 import io
 import json
@@ -57,12 +62,18 @@ def _main(argv, tmp) -> tuple[object, str]:
     """Run the CLI in process; its synthetic set goes under `tmp`.  Like the
     card machine, the run finds neither TensorBoard nor matplotlib (the
     optional paths: no event file, no PNGs), which also spares the test
-    TensorFlow's import."""
+    TensorFlow's import; the ranks the CLI spawns find the modules that say
+    so first on their path."""
     out = io.StringIO()
+    hidden = tmp / "hidden_modules"
+    hidden.mkdir(exist_ok=True)
+    for name in ("tensorboard", "matplotlib"):
+        (hidden / f"{name}.py").write_text(f"raise ImportError('{name} is hidden here')\n")
     with pytest.MonkeyPatch.context() as mp, contextlib.redirect_stdout(out):
         mp.setattr(tempfile, "tempdir", str(tmp))
         mp.setitem(sys.modules, "torch.utils.tensorboard", None)
         mp.setitem(sys.modules, "matplotlib", None)
+        mp.syspath_prepend(str(hidden))
         state = cli.main(argv)
     return state, out.getvalue()
 
@@ -208,6 +219,75 @@ def test_resume_continues_the_step_count(run):
     assert (run["tmp"] / "resumed" / "ckpt" / "step_3.pt").exists()
 
 
-def test_more_than_one_card_is_refused():
-    with pytest.raises(NotImplementedError, match="one card"):
-        cli.main(["--device", "cpu", "--num-devices", "2"])
+def test_more_than_one_card_is_refused(monkeypatch):
+    """More ranks than visible cards, or no rank at all, are refused before
+    anything starts."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="--num-devices 2: 1 card"):
+        cli.main(["--num-devices", "2"])
+    with pytest.raises(ValueError, match="--num-devices -1: no device to train on"):
+        cli.main(["--num-devices", "-1"])
+
+
+def test_the_backend_follows_the_ranks_devices():
+    """NCCL only when every rank has a card of its own (it refuses two ranks
+    on one card); gloo on the CPU and for ranks that share a card."""
+    assert cli.rank_backend(["cuda:0", "cuda:1"]) == "nccl"
+    assert cli.rank_backend(["cuda:0", "cuda:0"]) == "gloo"
+    assert cli.rank_backend(["cpu", "cpu"]) == "gloo"
+
+
+RANK_FLAGS = ["--device", "cpu", "--input-size", str(SIZE), "--synthetic", "4", "--epochs",
+              "1", "--batch-size", "2", "--max-boxes", "8"]
+
+
+@pytest.fixture(scope="module")
+def ranks_run(tmp_path_factory):
+    """The same one-epoch run on one device and on two gloo CPU ranks."""
+    tmp = tmp_path_factory.mktemp("cli_ranks")
+    cfg_path = tmp / "config.json"
+    cfg_path.write_text(json.dumps({"model": MODEL, "train": {"num_workers": 1},
+                                    "data": {"input_shape": [SIZE, SIZE]}}))
+    flags = ["--config", str(cfg_path), *RANK_FLAGS]
+    out = {}
+    for n in (1, 2):
+        save_dir = tmp / f"n{n}"
+        state, text = _main([*flags, "--num-devices", str(n), "--save-dir", str(save_dir)], tmp)
+        out[n] = dict(state=state, out=text, save_dir=save_dir)
+    return {"tmp": tmp, "flags": flags, **out}
+
+
+def test_two_cpu_ranks_write_the_one_device_run_weights(ranks_run):
+    one, two = ranks_run[1], ranks_run[2]
+    assert one["state"].step == 2 and two["state"] is None
+    assert "training on mesh {'data': 2, 'model': 1}: 2 ranks over gloo on cpu, cpu" \
+        in two["out"]
+    for run in (one, two):
+        d = run["save_dir"]
+        assert (d / "loss/epoch_det_seg.txt").read_text().count("\n") == 1
+        assert sorted(p.name for p in d.glob("*.npz")) == ["best_epoch_weights.npz",
+                                                          "last_epoch_weights.npz"]
+        assert [p.name for p in (d / "ckpt").iterdir()] == ["step_1.pt"]
+    with np.load(one["save_dir"] / "last_epoch_weights.npz") as a, \
+            np.load(two["save_dir"] / "last_epoch_weights.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            np.testing.assert_allclose(b[k], a[k], rtol=0, atol=1e-5, err_msg=k)
+    ck = torch.load(two["save_dir"] / "ckpt" / "step_1.pt", weights_only=True)
+    assert ck["step"] == 2
+
+
+def test_ranks_that_cannot_split_the_batch_are_refused(ranks_run):
+    with pytest.raises(ValueError, match="--batch-size 2 does not split over 3 ranks"):
+        _main([*ranks_run["flags"], "--num-devices", "3", "--save-dir",
+               str(ranks_run["tmp"] / "n3")], ranks_run["tmp"])
+    assert not (ranks_run["tmp"] / "n3").exists()
+
+
+def test_seg_only_trains_on_one_device_whatever_n(ranks_run):
+    save_dir = ranks_run["tmp"] / "seg_only_n2"
+    state, out = _main([*ranks_run["flags"], "--num-devices", "2", "--seg-only",
+                        "--save-dir", str(save_dir)], ranks_run["tmp"])
+    assert "[seg-only] trains on one device (cpu)" in out and "training on mesh" not in out
+    assert state.step == 2 and (save_dir / "last_epoch_weights.npz").exists()

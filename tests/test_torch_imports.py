@@ -35,7 +35,8 @@ def test_the_walk_covers_the_training_modules_and_the_smoke_script():
     training CLI (data layer, metrics, checkpoints, re-init, fit loop), the
     mixer ablation tool, inference and offline evaluation (the wrappers,
     the export with its operators, the fused pipeline and its ops, the
-    predict / evaluation CLIs) run is among the checked sources."""
+    predict / evaluation CLIs) and data-parallel training (the mesh, the
+    collectives, the sharding rules) run is among the checked sources."""
     have = {str(p.relative_to(ROOT)) for p in SOURCES}
     want = {"chip_smoke.py"} | {f"asy_vrnet_tpu_torch/{m}.py" for m in (
         "ops/losses_seg", "ops/losses_seg_fused", "ops/simota", "ops/simota_fused",
@@ -48,7 +49,9 @@ def test_the_walk_covers_the_training_modules_and_the_smoke_script():
         "train/callbacks", "train/seg_only", "train/loop", "cli/train",
         "ops/resize", "models/neck", "ops/radar", "ops/enhance", "ops/nms", "ops/custom_ops",
         "infer/export", "infer/predictor", "infer/pipeline", "cli/voc_annotation",
-        "cli/predict", "cli/predict_seg", "cli/get_map", "cli/get_miou")}
+        "cli/predict", "cli/predict_seg", "cli/get_map", "cli/get_miou",
+        "parallel/__init__", "parallel/mesh", "parallel/collectives",
+        "parallel/sharding_rules")}
     assert want <= have, sorted(want - have)
 
 
