@@ -22,11 +22,14 @@ import asy_vrnet_tpu_torch.ops.custom_ops  # noqa: F401  (registers asy_vrnet::*
 from asy_vrnet_tpu_torch.config import ModelConfig
 from asy_vrnet_tpu_torch.ops.boxes import decode_predictions
 from asy_vrnet_tpu_torch.ops.nms import non_max_suppression
+from asy_vrnet_tpu_torch.utils.profiling import span
 
 
 class ServingGraph(nn.Module):
     """model(image, radar) -> (det maps, seg) or, with `with_postprocess`,
-    (NMS dict of (B, max_det) tensors, seg softmax over classes)."""
+    (NMS dict of (B, max_det) tensors, seg softmax over classes).  Under a
+    profiler the two parts are the spans `serve/forward` and
+    `serve/postprocess` (`utils/profiling.py::span`)."""
 
     def __init__(self, model: nn.Module, cfg: ModelConfig, with_postprocess: bool = True,
                  conf_thres: float = 0.3, nms_thres: float = 0.5, max_det: int = 100):
@@ -36,12 +39,14 @@ class ServingGraph(nn.Module):
         self.conf_thres, self.nms_thres, self.max_det = conf_thres, nms_thres, max_det
 
     def forward(self, image: torch.Tensor, radar: torch.Tensor):
-        det, seg = self.model(image, radar)
+        with span("serve/forward"):
+            det, seg = self.model(image, radar)
         if not self.with_postprocess:
             return det, seg
-        out = decode_and_nms(det, self.cfg, self.conf_thres, self.nms_thres, self.max_det,
-                             fixed_rounds=True)
-        return out, torch.softmax(seg, dim=-1)
+        with span("serve/postprocess"):
+            out = decode_and_nms(det, self.cfg, self.conf_thres, self.nms_thres, self.max_det,
+                                 fixed_rounds=True)
+            return out, torch.softmax(seg, dim=-1)
 
 
 def decode_and_nms(det, cfg: ModelConfig, conf_thres: float, nms_thres: float,

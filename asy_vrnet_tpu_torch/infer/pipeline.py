@@ -25,6 +25,7 @@ from asy_vrnet_tpu_torch.data.preprocess import IMAGENET_MEAN, IMAGENET_STD
 from asy_vrnet_tpu_torch.infer.export import ServingGraph
 from asy_vrnet_tpu_torch.ops.radar import project_points_to_rvep
 from asy_vrnet_tpu_torch.ops.resize import resize_bicubic_pil
+from asy_vrnet_tpu_torch.utils.profiling import span
 
 
 @functools.lru_cache(maxsize=None)
@@ -57,20 +58,24 @@ def build_fused_pipeline(model, cfg: ModelConfig, source_hw: tuple[int, int],
     """-> fn(image_u8 (B, H0, W0, 3), radar_points (B, N, 6), radar_valid
     (B, N)) -> (detections: dict of (B, max_det) tensors, seg probabilities
     (B, h, w, C)), all on the model's device.  `source_hw` is the frames'
-    (H0, W0), which the letterbox's geometry follows."""
+    (H0, W0), which the letterbox's geometry follows.  Under a profiler a
+    call is the span `serve`, tiled by `serve/preprocess` and the graph's
+    `serve/forward` and `serve/postprocess`."""
     input_hw = cfg.input_size
     graph = ServingGraph(model, cfg, True, conf_thres, nms_thres, max_det)
 
     @torch.no_grad()
     def pipeline(image_u8, radar_points, radar_valid):
-        if tuple(image_u8.shape[1:3]) != tuple(source_hw):
-            raise ValueError(f"frames {tuple(image_u8.shape[1:3])}, expected {source_hw}")
-        img = device_letterbox(image_u8, input_hw)
-        radar = project_points_to_rvep(radar_points, radar_valid, input_hw)
-        if radar_minmax:
-            lo = radar.amin(dim=(1, 2, 3), keepdim=True)
-            hi = radar.amax(dim=(1, 2, 3), keepdim=True)
-            radar = (radar - lo) / (hi - lo + 1e-12) + 1e-13
-        return graph(img, radar)
+        with span("serve"):
+            with span("serve/preprocess"):
+                if tuple(image_u8.shape[1:3]) != tuple(source_hw):
+                    raise ValueError(f"frames {tuple(image_u8.shape[1:3])}, expected {source_hw}")
+                img = device_letterbox(image_u8, input_hw)
+                radar = project_points_to_rvep(radar_points, radar_valid, input_hw)
+                if radar_minmax:
+                    lo = radar.amin(dim=(1, 2, 3), keepdim=True)
+                    hi = radar.amax(dim=(1, 2, 3), keepdim=True)
+                    radar = (radar - lo) / (hi - lo + 1e-12) + 1e-13
+            return graph(img, radar)
 
     return pipeline

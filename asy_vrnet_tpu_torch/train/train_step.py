@@ -15,6 +15,12 @@ the global losses and metrics, and after the backward one all-reduce sums the
 ranks' parts of the model gradients into the global batch's.  The
 log-variance's gradient is whole on every rank already and is not summed.
 
+Under a profiler the step is the span `train_step`: after its preparation
+(device check, batch onto the device, `zero_grad`) the spans
+`train_step/forward`, `/loss_seg`, `/loss_det`, `/backward` (the autograd
+thread's launches fall inside it by time), `/grad_sync`, `/optimizer` and
+`/ema` tile the rest of it (`utils/profiling.py::span`).
+
 Batch layout (numpy arrays or tensors, fixed shapes):
   image       (B, H, W, 3)  float32 ImageNet-normalised, or uint8
   radar       (B, H, W, 4)  float32, raw
@@ -40,6 +46,7 @@ from asy_vrnet_tpu_torch.parallel import collectives
 from asy_vrnet_tpu_torch.train.optim import get_learning_rate
 from asy_vrnet_tpu_torch.train.state import TrainState, apply_ema, eval_variables
 from asy_vrnet_tpu_torch.utils.device import resolve_device, same_device
+from asy_vrnet_tpu_torch.utils.profiling import span
 
 # the VRCoC backbone, which `freeze_backbone` freezes (train.py:439-440)
 FROZEN_PREFIX = "backbone.backbone."
@@ -139,34 +146,40 @@ def build_train_step(cfg: Config, freeze_backbone: bool = False,
     uncertainty = cfg.loss.multitask_mode == "uncertainty"
 
     def train_step(state: TrainState, batch: dict):
-        _check_state_device(state, dev)
-        model, optimizer = state.model, state.optimizer
-        batch = _batch_on(batch, dev)
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        state.log_var.grad = None
-
-        det, seg = model(maybe_normalize_image_device(batch["image"]), batch["radar"])
-        loss_seg, fsc = seg_loss_and_fscore(cfg, seg, batch)
-        loss_det, aux = detection_loss(cfg, det, batch)
-        total = combine_losses(cfg, loss_det, loss_seg, state.log_var)
-        total.backward()
-
-        if freeze_backbone:
-            # a parameter without a gradient is skipped by the optimiser:
-            # no update, no weight decay, momentum left as it was
-            for name, p in model.named_parameters():
-                if name.startswith(FROZEN_PREFIX):
-                    p.grad = None
-        collectives.all_reduce_grads(model.parameters())
-        optimizer.step()
-        if uncertainty:
-            # plain SGD on the scalar log-var at the current learning rate
-            with torch.no_grad():
-                state.log_var -= get_learning_rate(optimizer) * state.log_var.grad
-        state.step += 1
-        if cfg.optim.ema:
-            apply_ema(state, cfg.optim.ema_decay, cfg.optim.ema_tau)
+        with span("train_step"):
+            _check_state_device(state, dev)
+            model, optimizer = state.model, state.optimizer
+            batch = _batch_on(batch, dev)
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            state.log_var.grad = None
+            with span("train_step/forward"):
+                det, seg = model(maybe_normalize_image_device(batch["image"]), batch["radar"])
+            with span("train_step/loss_seg"):
+                loss_seg, fsc = seg_loss_and_fscore(cfg, seg, batch)
+            with span("train_step/loss_det"):
+                loss_det, aux = detection_loss(cfg, det, batch)
+                total = combine_losses(cfg, loss_det, loss_seg, state.log_var)
+            with span("train_step/backward"):
+                total.backward()
+            with span("train_step/grad_sync"):
+                if freeze_backbone:
+                    # a parameter without a gradient is skipped by the optimiser:
+                    # no update, no weight decay, momentum left as it was
+                    for name, p in model.named_parameters():
+                        if name.startswith(FROZEN_PREFIX):
+                            p.grad = None
+                collectives.all_reduce_grads(model.parameters())
+            with span("train_step/optimizer"):
+                optimizer.step()
+                if uncertainty:
+                    # plain SGD on the scalar log-var at the current learning rate
+                    with torch.no_grad():
+                        state.log_var -= get_learning_rate(optimizer) * state.log_var.grad
+                state.step += 1
+            with span("train_step/ema"):
+                if cfg.optim.ema:
+                    apply_ema(state, cfg.optim.ema_decay, cfg.optim.ema_tau)
         metrics = {"loss": total, "loss_det": loss_det, "loss_seg": loss_seg,
                    "num_fg": aux.num_fg, "f_score": fsc}
         return state, {k: v.detach() for k, v in metrics.items()}

@@ -1,7 +1,7 @@
 """Profiling and timing utilities (counterpart of `asy_vrnet_tpu/utils/profiling.py`):
 host-clock timing that ends in a device synchronise, device time from CUDA
-events, `torch.profiler` traces and a per-kernel summary of them, flop
-counts and parameter counts.
+events, named spans in the hot paths, `torch.profiler` traces and a
+per-kernel summary of them, flop counts and parameter counts.
 
 On CPU arguments the CPU is the device: the timers use the host clock and a
 trace's labelled ranges carry the CPU's time.  Nothing here falls back from
@@ -40,8 +40,26 @@ CATEGORIES = (
 )
 
 
-# Chrome-trace categories of work on the device
-_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset", "gpu_user_annotation")
+# Chrome-trace categories of work on the device, and with the device-side
+# ranges of labelled spans
+_OP_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+_DEVICE_CATS = _OP_CATS + ("gpu_user_annotation",)
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A named range of the host's work, for a profiler's trace.
+
+    While a `torch.profiler` records, this is `record_function(name)`: the
+    range lands in the profiler's Chrome trace beside the kernels, copies
+    and CUDA runtime calls it launched, on the same clock, and is written
+    when the profiler stops.  Otherwise it is one shared no-op context
+    manager, and the check is all it costs; under `torch.export` nothing
+    records, so an exported graph holds no profiler op."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 def _on_card(args) -> bool:
@@ -159,7 +177,7 @@ def traced(run: Callable[[], Any], log_dir: str, on_card: bool, attempts: int = 
             run()
             if on_card:
                 torch.cuda.synchronize()
-        if not on_card or any(e.get("cat") in _DEVICE_CATS for e in _trace_events(log_dir)):
+        if not on_card or any(e.get("cat") in _OP_CATS for e in _trace_events(log_dir)):
             return n
     return attempts
 
@@ -174,11 +192,12 @@ def kernel_table(trace_dir: str, iters: int) -> dict:
     Every device event is keyed by its own name: a kernel's (for this
     port's kernels, launched through ctypes, the template name, e.g.
     `mixer_block_kernel<__nv_bfloat16, 6, false>`), a copy's, or a profiler
-    label for the device span recorded around a `record_function` range
-    (which overlaps the kernels inside it: do not add the two).  `shape` is
-    the launching op's input dims where it recorded them, else "?".  A
-    trace with no device event (CPU arguments) keys the CPU time of each
-    labelled range instead."""
+    label for the device span recorded around a `record_function` range or
+    a `span` (keyed by the span's name, e.g. `train_step/forward`): such a
+    row overlaps the kernels inside it and must not be added to them.
+    `shape` is the launching op's input dims where it recorded them, else
+    "?".  A trace with no device event (CPU arguments) keys the CPU time of
+    each labelled range instead."""
     events = _trace_events(trace_dir)
     dims = {e["args"]["External id"]: e["args"].get("Input Dims") for e in events
             if e.get("cat") == "cpu_op" and "External id" in e.get("args", {})}
@@ -194,11 +213,26 @@ def kernel_table(trace_dir: str, iters: int) -> dict:
     return {k: (us / iters / 1e3, count[k] / iters) for k, us in total.items()}
 
 
+def _union_us(intervals: list[tuple[float, float]]) -> float:
+    """Length of the union of [start, end) intervals; the benchmark's
+    `vrbench/record.py::union_us` is the same sum, and a test holds the two
+    equal."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
 def profile_calls(fn: Callable, reps: int = 3, attempts: int = 3) -> dict:
-    """torch.profiler over `reps` calls of fn() on the card: host wall time,
-    device busy time, device time by category and the top kernels (per
-    call).  A profile that recorded no kernel is taken again, up to
-    `attempts` profiles in all (see `traced`)."""
+    """torch.profiler over `reps` calls of fn() on the card, per call: host
+    wall time, device time (the union of the kernel, copy and memset
+    intervals, so that two streams that overlap count once, and spans'
+    device-side ranges not at all), its share of the wall time, device
+    ops, device time by category (summed per op) and the top ops.  A
+    profile that recorded no kernel is taken again, up to `attempts`
+    profiles in all (see `traced`)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -210,14 +244,19 @@ def profile_calls(fn: Callable, reps: int = 3, attempts: int = 3) -> dict:
                 fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3 / reps
-        kernels = {}
-        for e in prof.events():
-            if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-                t, n = kernels.get(e.name, (0.0, 0))
-                kernels[e.name] = (t + e.device_time_total / 1e3 / reps, n + 1)
-        if kernels:
+        # the kernels, copies and memsets of the profiler's in-memory
+        # results, spans' device-side ranges left out: (name, start us,
+        # duration us)
+        ops = [(e.name(), e.start_ns() / 1e3, e.duration_ns() / 1e3)
+               for e in prof.profiler.kineto_results.events()
+               if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()]
+        if ops:
             break
-    device = sum(t for t, _ in kernels.values())
+    kernels = {}
+    for name, _, dur in ops:
+        t, n = kernels.get(name, (0.0, 0))
+        kernels[name] = (t + dur / 1e3 / reps, n + 1)
+    device = _union_us([(ts, ts + dur) for _, ts, dur in ops]) / 1e3 / reps
     cats = {c: 0.0 for c, _ in CATEGORIES}
     cats["other elementwise"] = 0.0
     for name, (t, _) in kernels.items():
@@ -230,7 +269,7 @@ def profile_calls(fn: Callable, reps: int = 3, attempts: int = 3) -> dict:
             cats["other elementwise"] += t
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
     return {"wall_ms": wall, "device_ms": device, "busy_share": device / wall,
-            "launches": sum(n for _, n in kernels.values()) // reps,
+            "launches": len(ops) // reps,
             "by_category_ms": cats,
             "top": [(name[:90], t, n // reps) for name, (t, n) in top]}
 
