@@ -6,6 +6,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
 #include <initializer_list>
 
 namespace asy {
@@ -169,6 +170,28 @@ inline int copy_bytes(std::initializer_list<size_t> vals) {
     if (ok) return v;
   }
   return 0;
+}
+
+// The current card's shared memory that a block may opt in to (*block) and
+// that an SM holds (*sm), read once per device; 0 where they cannot be read
+inline void smem_limits(size_t* block, size_t* sm) {
+  constexpr int kDevices = 64;
+  static std::atomic<size_t> cache[kDevices][2];
+  int dev = 0;
+  *block = *sm = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kDevices) return;
+  if (cache[dev][0].load() == 0) {
+    int b = 0, m = 0;
+    if (cudaDeviceGetAttribute(&b, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+            cudaSuccess ||
+        cudaDeviceGetAttribute(&m, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev) !=
+            cudaSuccess)
+      return;
+    cache[dev][1].store((size_t)m);
+    cache[dev][0].store((size_t)b);
+  }
+  *block = cache[dev][0].load();
+  *sm = cache[dev][1].load();
 }
 
 // Sets the dynamic shared memory limit of `kernel` to `bytes`; returns an

@@ -57,6 +57,15 @@
 // feat is never stored, so a 1024-token region (the p3 neck block) needs no
 // more shared memory than its chunks.
 //
+// Wide layout (kWide), for a block that fits in shared memory at no split G
+// (C = 512-640 with 8 or 4 heads): fc_v and fc2 stay in device memory (read
+// where the centers are projected and folded, once a region, L2-resident),
+// two chunk buffers instead of three (chunk k is aggregated right after its
+// assignment, behind a third barrier, so chunk k + 1 may load over chunk
+// k - 1), and the fc2-projected centers are not gathered: the dispatch reads
+// each head's from the CTA that owns it through distributed shared memory.
+// The same operations in the same order: the bits of the base layout.
+//
 // Numerics mirror the TPU kernel: xn, feat (for the cosine), feat^2 (for the
 // norms), the token inverse norms, the centers, the sims, the aggregated
 // centers and the fc2-projected centers are rounded to the working type where
@@ -98,6 +107,7 @@ using asy::mix::kLanes;  // lanes per (token, head) in the assignment
 using asy::mix::kSplit;  // fixed token splits of the aggregation
 constexpr int kThreads = 256;
 constexpr int kBufs = 3;  // chunk buffers: load n + 1, feat n, aggregate n - 1
+constexpr int kWideBufs = 2;  // the wide layout's: load n + 1, feat and aggregate n
 
 // where a prefix stops (kCosm: the normalise-first variant only)
 constexpr int kGn = 0, kCenters = 1, kFeat = 2, kCosm = 3, kSim = 4, kAgg = 5, kFull = 6;
@@ -106,6 +116,7 @@ struct Geo {
   int B, H, W, C, I, heads, D, fold_h, fold_w, rh, rw, N, ph, pw, M;
   int G, hpc, nper;  // CTAs per cluster, heads per CTA, dispatch tokens per CTA
   int tc;            // feat on tensor cores
+  int wide;          // the wide layout (see above)
   int sx, sw;        // row strides (elements) of the staged chunks and wf/wv columns
   int vec;           // bytes per cp.async copy (0: plain loads)
 };
@@ -122,13 +133,14 @@ inline Geo make_geo(int B, int H, int W, int C, int I, int heads, int fold_h, in
   // rows padded so that a row starts 16 bytes on from its neighbour's bank:
   // ldmatrix's 8 row reads then fall on disjoint banks
   return Geo{B, H, W, C, I, heads, I / heads, fold_h, fold_w, rh, rw, n, ph, pw, ph * pw,
-             G, heads / G, (n + G - 1) / G, tc, C + 16 / (int)sizeof(T),
+             G, heads / G, (n + G - 1) / G, tc, 0, C + 16 / (int)sizeof(T),
              (dg + 15) / 16 * 16 + 8, 0};
 }
 
 inline Smem smem_layout(const Geo& g, size_t esz) {
   const size_t dg = (size_t)g.hpc * g.D, mc = (size_t)g.M * g.C, f = sizeof(float);
   const size_t gathered = g.G > 1;  // the *_all buffers exist only in clusters
+  const size_t staged = !g.wide;    // fc_v, fc2 and the gathered centers (base layout)
   Smem s;
   size_t o = 0;
   auto put = [&](size_t& at, size_t bytes) {
@@ -136,9 +148,9 @@ inline Smem smem_layout(const Geo& g, size_t esz) {
     o = (o + bytes + 15) / 16 * 16;
   };
   put(s.wf, (size_t)g.C * g.sw * esz);
-  put(s.wv, (size_t)g.C * g.sw * esz);
-  put(s.w2, dg * g.C * esz);
-  put(s.xs, (size_t)kBufs * kChunk * g.sx * esz);
+  put(s.wv, staged * g.C * g.sw * esz);
+  put(s.w2, staged * dg * g.C * esz);
+  put(s.xs, (size_t)(g.wide ? kWideBufs : kBufs) * kChunk * g.sx * esz);
   put(s.fs, std::max((size_t)kChunk * (dg + kLanes), (size_t)g.M * dg) * f);
   put(s.cin, mc * f);
   put(s.cn, g.M * dg * f);
@@ -147,7 +159,7 @@ inline Smem smem_layout(const Geo& g, size_t esz) {
   put(s.rsp, (size_t)kSplit * g.hpc * g.M * f);
   put(s.cntp, (size_t)kSplit * g.hpc * g.M * f);
   put(s.ocw_own, g.hpc * mc * f);
-  put(s.ocw_all, gathered * g.heads * mc * f);
+  put(s.ocw_all, staged * gathered * g.heads * mc * f);
   put(s.invc, (size_t)g.hpc * g.M * f);
   put(s.red, 2 * (kThreads / 32) * f);
   put(s.sg, (size_t)g.N * g.hpc * f);
@@ -158,7 +170,7 @@ inline Smem smem_layout(const Geo& g, size_t esz) {
   return s;
 }
 
-template <typename T, int kStop = kFull, bool kNf = false>
+template <typename T, int kStop = kFull, bool kNf = false, bool kWide = false>
 __global__ void __launch_bounds__(kThreads)
 mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
                    const T* __restrict__ wf, const float* __restrict__ bf,
@@ -179,9 +191,9 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   unsigned char* sb = reinterpret_cast<unsigned char*>(smem4);
   auto fl = [&](size_t o) { return reinterpret_cast<float*>(sb + o); };
   T* wfs = reinterpret_cast<T*>(sb + L.wf);  // [C][SW] the CTA's fc1 columns
-  T* wvs = reinterpret_cast<T*>(sb + L.wv);  // [C][SW] its fc_v columns
-  T* w2s = reinterpret_cast<T*>(sb + L.w2);  // [Dg][C] its fc2 rows
-  T* xsb = reinterpret_cast<T*>(sb + L.xs);  // [kBufs][kChunk][SX] raw input chunks
+  T* wvs = reinterpret_cast<T*>(sb + L.wv);  // [C][SW] its fc_v columns (base layout)
+  T* w2s = reinterpret_cast<T*>(sb + L.w2);  // [Dg][C] its fc2 rows (base layout)
+  T* xsb = reinterpret_cast<T*>(sb + L.xs);  // [bufs][kChunk][SX] raw input chunks
   float* fs = fl(L.fs);                      // [kChunk][DP] feat chunk; later oc [M][Dg]
   float* cin = fl(L.cin);                    // [M][C] pooled input rows
   float* cn = fl(L.cn);                      // [M][Dg] normalised centers (own heads)
@@ -190,7 +202,7 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   float* rs = fl(L.rsp);                     // [kSplit][hpc][M] sums of sims (then split 0)
   float* cnt = fl(L.cntp);                   // [kSplit][hpc][M] counts (then split 0)
   float* ocw_own = fl(L.ocw_own);            // [hpc][M][C] fc2-projected centers
-  float* ocw_all = fl(L.ocw_all);            // [heads][M][C] gathered from the cluster
+  float* ocw_all = fl(L.ocw_all);            // [heads][M][C] gathered (base layout)
   float* invc = fl(L.invc);                  // [M][hpc]
   float* red = fl(L.red);                    // [2][warps]
   float* sg = fl(L.sg);                      // [N][hpc] winner sigmoid
@@ -226,11 +238,12 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   // ---- staging (cp.async): the CTA's weights, then the first chunk ----
   // A chunk is staged raw and normalised as it is read (rnd((x - mu) *
   // rstd), the same bits as norm_in): no pass, no barrier of its own.
+  constexpr int bufs = kWide ? kWideBufs : kBufs;
   const int chunks = (N + kChunk - 1) / kChunk;
-  auto chunk = [&](int k) -> const T* { return xsb + (k % kBufs) * kChunk * SX; };
+  auto chunk = [&](int k) -> const T* { return xsb + (k % bufs) * kChunk * SX; };
   auto load_chunk = [&](int k) {
     const int n0 = k * kChunk;
-    asy::stage_rows(xsb + (k % kBufs) * kChunk * SX, SX,
+    asy::stage_rows(xsb + (k % bufs) * kChunk * SX, SX,
                     [&](int t) { return x + tok(n0 + t); }, kChunk, min(kChunk, N - n0), C,
                     g.vec);
     asy::cp_async_commit();
@@ -238,9 +251,10 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
   if constexpr (kStop >= kCenters) {
     asy::stage_rows(wfs, SW, [&](int c) { return wf + (size_t)c * I + col0; }, C, C, Dg,
                     g.vec);
-    asy::stage_rows(wvs, SW, [&](int c) { return wv + (size_t)c * I + col0; }, C, C, Dg,
-                    g.vec);
-    if constexpr (kStop == kFull)
+    if constexpr (!kWide)
+      asy::stage_rows(wvs, SW, [&](int c) { return wv + (size_t)c * I + col0; }, C, C, Dg,
+                      g.vec);
+    if constexpr (kStop == kFull && !kWide)
       asy::stage_rows(w2s, C, [&](int j) { return w2 + (size_t)(col0 + j) * C; }, Dg, Dg, C,
                       g.vec);
     asy::cp_async_commit();
@@ -251,7 +265,12 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
 
   // ---- A. centers: adaptive-average pool in input space, then project ----
   auto wf_col = [&](int c, int j) { return to_f<T>(wfs[c * SW + j]); };
-  auto wv_col = [&](int c, int j) { return to_f<T>(wvs[c * SW + j]); };
+  auto wv_col = [&](int c, int j) {
+    if constexpr (kWide)
+      return to_f<T>(wv[(size_t)c * I + col0 + j]);
+    else
+      return to_f<T>(wvs[c * SW + j]);
+  };
   if constexpr (kStop >= kCenters) {
     asy::cp_async_wait<1>();  // the weights (the first chunk may still be in flight)
     // the cluster's CTAs pool a share of the channels each, then swap rows
@@ -280,7 +299,8 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
 
   // ---- B. assign + aggregate, chunk by chunk ----
   // Iteration k: chunk k + 1 loads while chunk k's feat and assignment and
-  // chunk k - 1's aggregation run; two barriers per chunk.
+  // chunk k - 1's aggregation run; two barriers per chunk (wide layout:
+  // chunk k's aggregation, after a third).
   const int sub = tid % kLanes;
   auto xn_at = [&](const T* xb, int t, int c) { return norm_in(xb[t * SX + c]); };
   auto aggregate = [&](int k) {  // the split sums of chunk k
@@ -295,7 +315,8 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     const int n0 = k * kChunk, nt = min(kChunk, N - n0);
     const T* xb = chunk(k);
     asy::cp_async_wait<0>();
-    __syncthreads();  // chunk k staged; k - 1's assignment and k - 2's aggregation done
+    __syncthreads();  // chunk k staged; k - 1's assignment and k - 2's (wide: k - 1's)
+                      // aggregation done
     if (k + 1 < chunks) load_chunk(k + 1);
     if constexpr (kStop < kFeat) {
       for (int e = tid; e < nt * C; e += kThreads) take(xn_at(xb, e / C, e % C));
@@ -368,13 +389,19 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
         }
       }
     }
-    if constexpr (kStop >= kSim)
+    if constexpr (kWide) {
+      __syncthreads();  // chunk k's assignment in sg, asg
+      aggregate(k);
+    } else if constexpr (kStop >= kSim) {
       if (k > 0) aggregate(k - 1);
+    }
   }
   if constexpr (kStop >= kSim) {
     __syncthreads();
-    aggregate(chunks - 1);
-    __syncthreads();
+    if constexpr (!kWide) {
+      aggregate(chunks - 1);
+      __syncthreads();
+    }
     asy::mix::sum_splits<T, false>(rs, hpc * M, 1, kSplit);
     asy::mix::sum_splits<T, false>(cnt, hpc * M, 1, kSplit);
     if constexpr (kStop >= kAgg) asy::mix::sum_splits<T, true>(aggp, hpc * M, C, kSplit);
@@ -432,8 +459,10 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     for (int e = tid; e < hpc * M * C; e += kThreads) {
       const int c = e % C, hm = e / C, hl = hm / M, m = hm % M;
       float acc = 0.f;
-      for (int d = 0; d < D; ++d)
-        acc = fmaf(oc[m * Dg + hl * D + d], to_f<T>(w2s[(hl * D + d) * C + c]), acc);
+      for (int d = 0; d < D; ++d) {
+        const T w = kWide ? w2[(size_t)(col0 + hl * D + d) * C + c] : w2s[(hl * D + d) * C + c];
+        acc = fmaf(oc[m * Dg + hl * D + d], to_f<T>(w), acc);
+      }
       ocw_own[e] = rnd<T>(acc);
     }
     if (assign_out != nullptr) {
@@ -442,29 +471,41 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
     }
 
     // ---- swap centers and assignments across the cluster, then dispatch ----
-    // (a cluster of one CTA already holds everything in the dispatch layout)
+    // (a cluster of one CTA already holds everything in the dispatch layout;
+    // the wide layout leaves the centers with their owners)
     const float* ocw_d = ocw_own;      // [heads][M][C]
     const float* sg_d = sg;            // [nd][heads]
     const unsigned char* asg_d = asg;  // [nd][heads]
     if (G > 1) {
       cluster.sync();
-      for (int e = tid; e < heads * M * C; e += kThreads) {
-        const int h = e / (M * C);
-        const float* peer = cluster.map_shared_rank(ocw_own, h / hpc);
-        ocw_all[e] = peer[(h % hpc) * M * C + e % (M * C)];
+      if constexpr (!kWide) {
+        for (int e = tid; e < heads * M * C; e += kThreads) {
+          const int h = e / (M * C);
+          const float* peer = cluster.map_shared_rank(ocw_own, h / hpc);
+          ocw_all[e] = peer[(h % hpc) * M * C + e % (M * C)];
+        }
       }
       for (int e = tid; e < nd * heads; e += kThreads) {
         const int n = n_lo + e / heads, h = e % heads, p = h / hpc;
         sg_all[e] = cluster.map_shared_rank(sg, p)[n * hpc + h % hpc];
         asg_all[e] = cluster.map_shared_rank(asg, p)[n * hpc + h % hpc];
       }
-      cluster.sync();  // no CTA leaves while a peer may still read its memory
-      ocw_d = ocw_all;
+      if constexpr (kWide)
+        __syncthreads();  // peers keep their memory until the cluster.sync after the dispatch
+      else
+        cluster.sync();  // no CTA leaves while a peer may still read its memory
+      if constexpr (!kWide) ocw_d = ocw_all;
       sg_d = sg_all;
       asg_d = asg_all;
     } else {
       __syncthreads();
     }
+    // head h's fc2-projected center m (a peer's memory in a wide cluster)
+    auto ocw_at = [&](int h, int m) -> const float* {
+      if (kWide && G > 1)
+        return cluster.map_shared_rank(ocw_own, h / hpc) + ((h % hpc) * M + m) * C;
+      return ocw_d + (h * M + m) * C;
+    };
     float s1 = 0.f, s2 = 0.f;
     const float rc = 1.f / C;
     for (int e = tid; e < nd * C; e += kThreads) {
@@ -473,7 +514,7 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       float y = 0.f;
       for (int h = 0; h < heads; ++h) {
         const int q = nl * heads + h;
-        y = fmaf(rnd<T>(sg_d[q]), ocw_d[(h * M + asg_d[q]) * C + c], y);
+        y = fmaf(rnd<T>(sg_d[q]), ocw_at(h, asg_d[q])[c], y);
       }
       const size_t o = tok(n_lo + nl) + c;
       const T v = asy::from_f<T>(to_f<T>(x[o]) + (y + b2[c]));
@@ -501,7 +542,31 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
       part[p] = a;
       part[p + 1] = q;
     }
+    if (kWide && G > 1) cluster.sync();  // no CTA leaves while a peer reads its centers
   }
+}
+
+// K2's layout (the base one, or with `wide` the wide one) for a region of
+// rh x rw tokens split over G CTAs, against the card's shared-memory limit
+// per block
+template <typename T>
+bool fits(int C, int I, int heads, int rh, int rw, int ph, int pw, int G, int wide,
+          size_t* bytes) {
+  Geo g = make_geo<T>(1, rh, rw, C, I, heads, 1, 1, ph, pw, G, 0);
+  g.wide = wide;
+  *bytes = smem_layout(g, sizeof(T)).bytes;
+  size_t optin = 0, per_sm = 0;
+  asy::smem_limits(&optin, &per_sm);
+  return *bytes <= optin;
+}
+
+// The layout K2 takes at G, the one place that chooses: 0 base, where it
+// fits; else 1 wide, where that fits; -1 neither
+template <typename T>
+int layout(int C, int I, int heads, int rh, int rw, int ph, int pw, int G, size_t* bytes) {
+  if (C <= 0 || heads <= 0 || I % heads || G <= 0 || G > 8 || heads % G) return -1;
+  if (fits<T>(C, I, heads, rh, rw, ph, pw, G, 0, bytes)) return 0;
+  return fits<T>(C, I, heads, rh, rw, ph, pw, G, 1, bytes) ? 1 : -1;
 }
 
 // Launches K2 (kStop = kFull, base) or one of its prefixes.  `occupancy`
@@ -509,7 +574,8 @@ mixer_block_kernel(const T* __restrict__ x, const float* __restrict__ stats,
 // null for K2 itself; for a prefix, the dynamic shared memory is padded until
 // an SM holds no more of its CTAs than of K2's.  tc: feat on tensor cores,
 // as the caller counts it; refused unless it is asy::mix::feat_on_tc's own
-// choice, so it confirms the path and never selects one.
+// choice, so it confirms the path and never selects one.  K2 takes the
+// layout that layout() gives at this G.
 template <typename T, int kStop, bool kNf>
 int launch(const void* x, const float* stats, const void* wf, const float* bf,
            const void* wv, const float* bv, const void* w2, const float* b2,
@@ -527,8 +593,13 @@ int launch(const void* x, const float* stats, const void* wf, const float* bf,
   const size_t sz = sizeof(T);
   g.vec = asy::copy_bytes({(size_t)x, (size_t)wf, (size_t)wv, (size_t)w2, C * sz,
                            (size_t)g.hpc * g.D * sz, I * sz});
+  if (kStop == kFull && !kNf && occupancy == nullptr) {
+    size_t bytes = 0;
+    g.wide = layout<T>(C, I, heads, g.rh, g.rw, ph, pw, G, &bytes) == 1;
+  }
   const Smem L = smem_layout(g, sz);
-  const auto kernel = mixer_block_kernel<T, kStop, kNf>;
+  const auto kernel = g.wide ? mixer_block_kernel<T, kFull, false, true>
+                             : mixer_block_kernel<T, kStop, kNf, false>;
   size_t bytes = L.bytes;
   cudaError_t e = asy::set_smem(kernel, bytes);
   if (e != cudaSuccess) return (int)e;
@@ -605,26 +676,15 @@ int launch_prefix(const void* x, const float* stats, const void* wf, const float
   return (int)cudaErrorInvalidValue;
 }
 
-// K2's layout for a region of rh x rw tokens split over G CTAs (elements of
-// esz bytes: 2 bf16, 4 f32), with the card's shared-memory limit per block
+// The smallest G >= least whose base layout fits; where none does, the
+// smallest whose wide layout fits (*wide says which: layout()'s choice at G)
 template <typename T>
-bool fits(int C, int I, int heads, int rh, int rw, int ph, int pw, int G, size_t* bytes) {
-  int dev = 0, optin = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
-          cudaSuccess)
-    return false;
-  const Geo g = make_geo<T>(1, rh, rw, C, I, heads, 1, 1, ph, pw, G, 0);
-  *bytes = smem_layout(g, sizeof(T)).bytes;
-  return *bytes <= (size_t)optin;
-}
-
-template <typename T>
-int groups(int C, int I, int heads, int rh, int rw, int ph, int pw, int least) {
+int groups(int C, int I, int heads, int rh, int rw, int ph, int pw, int least, int* wide) {
   if (C <= 0 || heads <= 0 || I % heads) return -1;
   size_t bytes = 0;
-  for (int G = std::max(1, least); G <= std::min(8, heads); ++G)
-    if (heads % G == 0 && fits<T>(C, I, heads, rh, rw, ph, pw, G, &bytes)) return G;
+  for (*wide = 0; *wide < 2; ++*wide)
+    for (int G = std::max(1, least); G <= std::min(8, heads); ++G)
+      if (heads % G == 0 && fits<T>(C, I, heads, rh, rw, ph, pw, G, *wide, &bytes)) return G;
   return -1;
 }
 
@@ -632,10 +692,10 @@ int groups(int C, int I, int heads, int rh, int rw, int ph, int pw, int least) {
 template <typename T>
 int info(int C, int I, int heads, int rh, int rw, int ph, int pw, int G, int* out) {
   size_t bytes = 0;
-  if (C <= 0 || heads <= 0 || I % heads || G <= 0 || heads % G ||
-      !fits<T>(C, I, heads, rh, rw, ph, pw, G, &bytes))
-    return (int)cudaErrorInvalidValue;
-  const auto kernel = mixer_block_kernel<T, kFull, false>;
+  const int wide = layout<T>(C, I, heads, rh, rw, ph, pw, G, &bytes);
+  if (wide < 0) return (int)cudaErrorInvalidValue;
+  const auto kernel = wide ? mixer_block_kernel<T, kFull, false, true>
+                           : mixer_block_kernel<T, kFull, false, false>;
   cudaError_t e = asy::set_smem(kernel, bytes);
   int per_sm = 0;
   cudaFuncAttributes attr = {};
@@ -704,13 +764,14 @@ int mixer_block_ablate_f32(const void* x, const float* stats, const void* wf,
 }
 
 // CTAs per region to launch with: the smallest divisor G of heads (G <= 8,
-// the portable cluster size), at least `least`, whose layout fits in the
-// card's shared memory; -1 if none does.  rh x rw: the region's tokens;
-// esz: 2 (bf16) or 4 (f32).
+// the portable cluster size), at least `least`, whose base layout fits in
+// the card's shared memory, else the smallest whose wide layout fits; -1 if
+// none does.  *wide: 1 where K2 launches on its wide layout.  rh x rw: the
+// region's tokens; esz: 2 (bf16) or 4 (f32).
 int mixer_block_groups(int esz, int C, int I, int heads, int rh, int rw, int ph, int pw,
-                       int least) {
-  return esz == 2 ? groups<__nv_bfloat16>(C, I, heads, rh, rw, ph, pw, least)
-                  : groups<float>(C, I, heads, rh, rw, ph, pw, least);
+                       int least, int* wide) {
+  return esz == 2 ? groups<__nv_bfloat16>(C, I, heads, rh, rw, ph, pw, least, wide)
+                  : groups<float>(C, I, heads, rh, rw, ph, pw, least, wide);
 }
 
 // K2 as launched at that geometry with G CTAs per region: out = [dynamic

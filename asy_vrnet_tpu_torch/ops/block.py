@@ -62,11 +62,15 @@ LAUNCHES = {"mixer_block": 0, "mlp_block": 0, "mixer_block_bwd": 0, "mlp_block_b
             "mixer_block_bwd_remat": 0, "mlp_block_z1": 0, "mlp_block_bwd_z1": 0}
 # the same launches of K2, K1, K6, K6r and K5 (either variant) by the path
 # they took: K2's feat, K6's and K6r's feat, dxn-share and dWf products on
-# tensor cores ("tc") or CUDA cores ("fma"); K1 on tensor cores with t tokens
-# per CTA ("mma<t>") or on CUDA cores ("fma"); K5 on tensor cores in
-# thread-block clusters ("cluster") or on CUDA cores ("fma")
-PATHS = {"mixer_block/tc": 0, "mixer_block/fma": 0, "mlp_block/mma16": 0,
-         "mlp_block/mma32": 0, "mlp_block/mma64": 0, "mlp_block/fma": 0,
+# tensor cores ("tc") or CUDA cores ("fma"), K2 on its wide layout
+# ("*_wide"); K1 on tensor cores with t tokens per CTA ("mma<t>"), on a wide
+# tensor-core kernel with t tokens per CTA ("wide<t>") or on CUDA cores
+# ("fma"); K5 on tensor cores in thread-block clusters ("cluster") or on CUDA
+# cores ("fma")
+PATHS = {"mixer_block/tc": 0, "mixer_block/fma": 0, "mixer_block/tc_wide": 0,
+         "mixer_block/fma_wide": 0, "mlp_block/mma16": 0, "mlp_block/mma32": 0,
+         "mlp_block/mma64": 0, "mlp_block/wide64": 0, "mlp_block/wide128": 0,
+         "mlp_block/fma": 0,
          "mixer_block_bwd/tc": 0, "mixer_block_bwd/fma": 0, "mixer_block_bwd_remat/tc": 0,
          "mixer_block_bwd_remat/fma": 0, "mlp_block_bwd/cluster": 0, "mlp_block_bwd/fma": 0,
          "mlp_block_bwd_z1/cluster": 0, "mlp_block_bwd_z1/fma": 0}
@@ -609,7 +613,8 @@ def mixer_block_launch(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
     _check("b2", b2, (c,), f32, dev)
     out = torch.empty_like(x)
     regions = fold_h * fold_w
-    g = kernels.mixer_groups(x, wf.shape[1], heads, fold_h, fold_w, proposal_h, proposal_w)
+    g, wide = kernels.mixer_layout(x, wf.shape[1], heads, fold_h, fold_w, proposal_h,
+                                   proposal_w)
     tc = kernels.mixer_feat_on_tensor_cores(c, wf.shape[1] // heads, x.dtype)
     part = torch.empty((b, regions * g, 2), dtype=f32, device=dev)
     per_token, centers = _residual_shapes(x, heads, wf.shape[1], fold_h, fold_w,
@@ -624,7 +629,7 @@ def mixer_block_launch(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, *, heads,
     kernels.mixer_block(x, stats, wf, bf, wv, bv, w2, b2, alpha_beta, out,
                         part, assign, pack, tc=tc, **kw)
     LAUNCHES["mixer_block"] += 1
-    PATHS["mixer_block/tc" if tc else "mixer_block/fma"] += 1
+    PATHS[f"mixer_block/{'tc' if tc else 'fma'}{'_wide' if wide else ''}"] += 1
     moments = part.sum(dim=1)
     if return_residuals:
         return out, moments, pack
@@ -682,7 +687,10 @@ def mlp_block_launch(x, stats, w1, b1, w2, b2, return_z1=False):
     tokens = kernels.mlp_tokens(x, w1, w2)
     kernels.mlp_block(x, stats, w1, b1, w2, b2, out, z1, tokens)
     LAUNCHES["mlp_block_z1" if return_z1 else "mlp_block"] += 1
-    PATHS[f"mlp_block/mma{tokens}" if tokens else "mlp_block/fma"] += 1
+    if not tokens:
+        PATHS["mlp_block/fma"] += 1
+    else:
+        PATHS[f"mlp_block/{'wide' if kernels.mlp_wide(x.shape[-1]) else 'mma'}{tokens}"] += 1
     return (out, z1) if return_z1 else out
 
 

@@ -70,7 +70,7 @@ _EXTRA = {"mixer_block_bwd": {"mixer_block_bwd_groups": ([_I] * 8, _I),
                               "mixer_block_bwd_info": ([_I] * 8 + [_P], _I)},
           "mixer_block": {**{f"mixer_block_ablate_{t}": ([_P] * 12 + [_I] * 14 + [_P] * 2, _I)
                              for t in ("bf16", "f32")},
-                          "mixer_block_groups": ([_I] * 9, _I),
+                          "mixer_block_groups": ([_I] * 9 + [_P], _I),
                           "mixer_block_info": ([_I] * 9 + [_P], _I)},
           "mlp_block": {"mlp_block_info": ([_I] * 2 + [_P], _I)},
           "mlp_block_bwd": {"mlp_block_bwd_info": ([_I] * 10 + [_P], _I),
@@ -218,9 +218,18 @@ def mixer_feat_on_tensor_cores(c: int, head_dim: int, dtype: torch.dtype) -> boo
 
 def mixer_groups(x: torch.Tensor, inner: int, heads: int, fold_h: int, fold_w: int,
                  proposal_h: int, proposal_w: int) -> int:
-    """CTAs per region of K2 on x (B, H, W, C): `mixer_cluster_size`'s
-    choice, raised to the next divisor of `heads` while the block does not
-    fit in shared memory.  Raises if none fits."""
+    """CTAs per region of K2 on x (B, H, W, C): `mixer_layout`'s G."""
+    return mixer_layout(x, inner, heads, fold_h, fold_w, proposal_h, proposal_w)[0]
+
+
+def mixer_layout(x: torch.Tensor, inner: int, heads: int, fold_h: int, fold_w: int,
+                 proposal_h: int, proposal_w: int) -> tuple[int, bool]:
+    """K2's geometry on x (B, H, W, C): (G, wide).  G, the CTAs per region,
+    is `mixer_cluster_size`'s choice, raised to the next divisor of `heads`
+    while the block does not fit in shared memory; where no split fits the
+    base layout, the same on the wide layout (fc_v and fc2 read from device
+    memory, two chunk buffers, the centers read from their owners;
+    csrc/mixer_block.cu), and `wide` says so.  Raises if none fits."""
     b, h, w, c = x.shape
     return _mixer_groups(x.element_size(), c, inner, heads, h // fold_h, w // fold_w,
                          proposal_h, proposal_w, b * fold_h * fold_w, x.device)
@@ -229,13 +238,14 @@ def mixer_groups(x: torch.Tensor, inner: int, heads: int, fold_h: int, fold_w: i
 @functools.lru_cache(maxsize=None)
 def _mixer_groups(esz, c, inner, heads, rh, rw, proposal_h, proposal_w, regions, device):
     least = mixer_cluster_size(heads, regions, device)
+    wide = torch.zeros(1, dtype=torch.int32)
     with torch.cuda.device(device):
         g = load("mixer_block").mixer_block_groups(esz, c, inner, heads, rh, rw, proposal_h,
-                                                   proposal_w, least)
+                                                   proposal_w, least, wide.data_ptr())
     if g < 1:
         raise RuntimeError(f"mixer_block: no split of C={c}, I={inner}, heads={heads} over "
                            f"a cluster fits in shared memory")
-    return g
+    return g, bool(wide.item())
 
 
 def mixer_block_info(dtype, c, inner, heads, region_hw, proposal_h, proposal_w, groups,
@@ -441,13 +451,32 @@ def mixer_block_bwd(x, g, stats, wf, bf, wv, bv, w2, alpha_beta, pack, dxn, scra
 # K1's tensor-core path: tokens per CTA, widest first (4 warps a CTA; with
 # fewer than 64 tokens they split the hidden units)
 MLP_TOKENS = (64, 32, 16)
+# its accumulators' widest C; past it, up to MLP_WIDE_MAX_C, the wide
+# tensor-core kernels (16 warps over 128 tokens a CTA up to MLP_WIDE128_MAX_C,
+# 64 above)
+MLP_MMA_MAX_C, MLP_WIDE_MAX_C, MLP_WIDE128_MAX_C = 160, 640, 320
 
 
 def mlp_mma_shape(c: int, hid: int, dtype: torch.dtype) -> bool:
-    """Whether K1 takes its tensor-core path at this width (the operands
-    must also be 16-byte aligned): bf16, C a multiple of 16 up to 160,
-    hid a multiple of 8.  Else the CUDA-core path."""
-    return dtype == torch.bfloat16 and c % 16 == 0 and c <= 160 and hid % 8 == 0
+    """Whether K1 takes a tensor-core path at this width (the operands
+    must also be 16-byte aligned): bf16, C a multiple of 16 up to 640,
+    hid a multiple of 8; past C = 160 a wide kernel (`mlp_wide`).  Else
+    the CUDA-core path."""
+    return (dtype == torch.bfloat16 and c % 16 == 0 and c <= MLP_WIDE_MAX_C
+            and hid % 8 == 0)
+
+
+def mlp_wide(c: int) -> bool:
+    """Whether a tensor-core shape of width c (`mlp_mma_shape`) runs on a
+    wide kernel."""
+    return c > MLP_MMA_MAX_C
+
+
+def mlp_wide_tokens(c: int) -> int:
+    """Tokens per CTA of the wide kernel at width c: 128 up to C = 320 (xn
+    of 128 tokens and a slice of 64 hidden units fit in shared memory), 64
+    above."""
+    return 128 if c <= MLP_WIDE128_MAX_C else 64
 
 
 def mlp_tokens_per_cta(ntok: int, sms: int) -> int:
@@ -459,7 +488,8 @@ def mlp_tokens_per_cta(ntok: int, sms: int) -> int:
 
 
 def mlp_tokens(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> int:
-    """K1's tokens per CTA for these operands, 0 for the CUDA-core path."""
+    """K1's tokens per CTA for these operands (`mlp_wide_tokens` on the wide
+    kernels), 0 for the CUDA-core path."""
     if (x.data_ptr() | w1.data_ptr() | w2.data_ptr()) % 16:
         return 0
     b, h, w, c = x.shape
@@ -468,12 +498,15 @@ def mlp_tokens(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _mlp_tokens(ntok, c, hid, dtype, device):
-    return mlp_tokens_per_cta(ntok, _sms(device)) if mlp_mma_shape(c, hid, dtype) else 0
+    if not mlp_mma_shape(c, hid, dtype):
+        return 0
+    return mlp_wide_tokens(c) if mlp_wide(c) else mlp_tokens_per_cta(ntok, _sms(device))
 
 
 def mlp_block_info(c: int, tokens: int, device) -> dict:
-    """K1's tensor-core kernel at width c with `tokens` per CTA: its dynamic
-    shared memory (bytes), CTAs per SM and registers per thread."""
+    """K1's tensor-core kernel at width c with `tokens` per CTA (past C =
+    160 the wide one, with `mlp_wide_tokens(c)`): its dynamic shared memory
+    (bytes), CTAs per SM and registers per thread."""
     out = torch.zeros(3, dtype=torch.int32)
     with torch.cuda.device(device):
         err = load("mlp_block").mlp_block_info(c, tokens, out.data_ptr())

@@ -9,6 +9,18 @@ Phases (each raises on failure; nothing is caught):
   2. at the 7 ClusterBlock shapes of nano coc_small at 512^2, batch 8, hold
      each kernel against its plain PyTorch twin on the card, bf16 (the main
      path) and f32; two runs of K2 and of K1 give equal bits;
+ 2b. the wide shapes (`check_wide`): at the 8 ClusterBlock shapes past C =
+     160 of vrnet-l and vrnet-s (coc_small, 512^2) at the serving cells'
+     batch of 256, bf16, K1 (its wide kernel, with and without z1) and K2
+     (its wide layout at l's stage 3, p5 and p4, its base layout at a
+     cluster split elsewhere) against their plain twins, two runs giving
+     equal bits; a batch-2 forward of each configuration launches by path
+     exactly `WIDE_PATHS` (every bf16 K1 past C = 160 on a wide kernel, no
+     `fma` launch), with no block on the unfused ops and no plain twin
+     called; the times (events, and device time in a trace), twin times,
+     bounds and geometry of K1's wide kernel at each shape and of K2's wide
+     layout at its three, summed a vrnet-l and a vrnet-s request
+     (`mlp_block_wide`, `mixer_block_wide` in the kernels line);
   3. main path: load the trained r05 weights into nano coc_small at 512^2,
      bf16, run one batch-8 forward (launch counters reset just before, read
      just after: 27 launches of each kernel, all 27 of K2 with its feat on
@@ -188,6 +200,14 @@ Tolerances:
     the other side and near-tied assignments flip: mixer agreement >= 99%, mean |diff|
     <= 2% of max|y|, max |diff| <= max|y| + 2 bf16 ulps; MLP within 2 bf16
     ulps of max|out|.
+  wide shapes (2b), bf16: K1 as the MLP above (out and z1); K2 on its wide
+    layout: a batch of 256 holds a few near-ties (about one pair in a
+    million flips), so the assignment agrees on >= 99.99% of (token, head)
+    pairs, and on the tokens whose every head agrees max |diff| is within
+    2 bf16 ulps of max |out| (the one rounding of x + y, and the order of
+    the f32 sums), with mean |diff| <= 1e-4 of max |y| overall: a wrong
+    peer's center or a wrong weight column read from device memory moves
+    whole tokens far past both; K2 on its base layout as the mixer above.
   512^2 bf16 forward, kernels vs plain twins: every output finite with the
     expected shape; mean |diff| <= 5% of mean |ref| per output (bf16 rounding
     and flipped assignments compound through 27 blocks).
@@ -703,6 +723,236 @@ def check_cluster_mix(dev):
     for st in stats.values():
         st["bound_by"] = "operations" if st.pop("flops_ms") >= st.pop("bytes_ms") else "bytes"
     return stats, agreement
+
+
+# The ClusterBlock shapes past C = 160 (vrnet-l's and vrnet-s's, coc_small at
+# 512^2) at the serving cells' batch: (name, B, H, W, C, heads, head_dim,
+# fold, hid, calls per request).  K1 takes its wide kernel at all of them;
+# K2 its wide layout at WIDE_K2, its base layout (at a cluster split) at the
+# others.
+WIDE_SHAPES = [
+    ("l_stage2", 256, 32, 32, 320, 8, 32, 2, 1280, 12),
+    ("l_stage3", 256, 16, 16, 512, 8, 32, 1, 2048, 4),
+    ("l_p5", 256, 16, 16, 512, 4, 24, 2, 2048, 1),
+    ("l_p4", 256, 32, 32, 640, 4, 24, 2, 2560, 1),
+    ("l_p3", 256, 64, 64, 256, 4, 24, 2, 1024, 1),
+    ("s_stage3", 256, 16, 16, 256, 8, 32, 1, 1024, 4),
+    ("s_p5", 256, 16, 16, 256, 4, 24, 2, 1024, 1),
+    ("s_p4", 256, 32, 32, 320, 4, 24, 2, 1280, 1),
+]
+WIDE_K2 = {"l_stage3", "l_p5", "l_p4"}
+# launches a 512^2 forward by path (the serving cells' configurations;
+# "mlp_block/mma": K1's narrow kernel at any tokens per CTA)
+WIDE_PATHS = {
+    "l": {"mixer_block/tc": 21, "mixer_block/tc_wide": 6, "mlp_block/mma": 8,
+          "mlp_block/wide128": 13, "mlp_block/wide64": 6},
+    "s": {"mixer_block/tc": 27, "mlp_block/mma": 21, "mlp_block/wide128": 6},
+}
+WIDE_KERNELS = {
+    "mlp_block_wide": dict(source="asy_vrnet_tpu_torch/csrc/mlp_block.cu",
+                           replaces="asy_vrnet_tpu/ops/block_pallas.py:2022"),
+    "mixer_block_wide": dict(source="asy_vrnet_tpu_torch/csrc/mixer_block.cu",
+                             replaces="asy_vrnet_tpu/ops/block_pallas.py:583"),
+}
+
+
+def check_wide(dev):
+    """K1's wide kernel and K2 at WIDE_SHAPES, bf16, against their plain
+    twins (two runs give equal bits; K1 the same output with z1), then a
+    batch-2 forward of vrnet-l and of vrnet-s at 512^2 whose launches by
+    path must be WIDE_PATHS with no ClusterBlock on the unfused ops and no
+    plain twin called; then the times (CUDA events, device time in a
+    trace), twin times and bounds of K1's wide kernel at every shape and of
+    K2's wide layout at WIDE_K2.  -> the two kernels-line entries."""
+    import torch
+
+    from asy_vrnet_tpu_torch.config import ModelConfig
+    from asy_vrnet_tpu_torch.models import cluster_block
+    from asy_vrnet_tpu_torch.models.efficient_vrnet import create_model
+    from asy_vrnet_tpu_torch.ops import block, kernels
+    from asy_vrnet_tpu_torch.utils.profiling import cuda_ms
+
+    totals = ("ms", "device_ms", "plain_ms", "bound_ms", "flops_ms", "bytes_ms")
+    stats = {k: {"max_abs_err": 0.0, "per_shape": [], "launches": {},
+                 "per_request": {p: dict.fromkeys(totals, 0.0) for p in WIDE_PATHS}}
+             for k in WIDE_KERNELS}
+    g = torch.Generator().manual_seed(19)
+
+    def rn(*s, scale=1.0):
+        return torch.randn(*s, generator=g) * scale
+
+    def cast(ws):
+        return [w.to(dev, torch.bfloat16 if w.dim() == 2 else torch.float32).contiguous()
+                for w in ws]
+
+    for (name, b, h, w, c, heads, d, fold, hid, calls) in WIDE_SHAPES:
+        inner, wide_k2 = heads * d, name in WIDE_K2
+        x = rn(b, h, w, c).to(dev, torch.bfloat16)
+        st = block.gn1_stats(x)
+        mw = cast((rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
+                   rn(c, inner, scale=c ** -0.5), rn(inner, scale=0.1),
+                   rn(inner, c, scale=inner ** -0.5), rn(c, scale=0.1),
+                   torch.tensor([1.5, 0.2])))
+        lw = cast((rn(c, hid, scale=c ** -0.5), rn(hid, scale=0.1),
+                   rn(hid, c, scale=hid ** -0.5), rn(c, scale=0.1)))
+        kw = dict(heads=heads, fold_h=fold, fold_w=fold, proposal_h=2, proposal_w=2)
+        # K1: within 2 bf16 ulps of the twin's largest |value| (out and z1)
+        wkey = f"mlp_block/wide{kernels.mlp_wide_tokens(c)}"
+        before = block.PATHS[wkey]
+        y = block.mlp_block(x, st, *lw)
+        y2 = block.mlp_block(x, st, *lw)
+        yz, z1 = block.mlp_block(x, st, *lw, return_z1=True)
+        torch.cuda.synchronize()
+        check(block.PATHS[wkey] == before + 3, f"K1 wide path {name}")
+        check(torch.equal(y, y2) and torch.equal(y, yz), f"K1 wide bits {name}")
+        yref, zref = block.mlp_block_plain(x, st, *lw, return_z1=True)
+        errs = []
+        for what, a, r in (("out", y, yref), ("z1", z1, zref)):
+            err, sc = (a.float() - r.float()).abs().max().item(), r.float().abs().max().item()
+            check(err <= 2 * bf16_ulp(sc), f"K1 wide {what} {name}: {err:.4e} of {sc:.4e}")
+            errs.append(err / bf16_ulp(sc))
+        del yref, zref, yz, z1, y2
+        # K2: the wide layout held as tests/test_torch_cuda_wide.py holds it,
+        # where a batch of 256 has a few near-ties: the assignment on >=
+        # 99.99% of (token, head) pairs, and on the tokens whose every head
+        # agrees max |diff| within 2 ulps, mean |diff| 1e-4 of max |y|
+        # overall; the base layout with the main path's tolerances
+        key = "mixer_block/tc_wide" if wide_k2 else "mixer_block/tc"
+        groups = kernels.mixer_groups(x, inner, heads, fold, fold, 2, 2)
+        before = block.PATHS[key]
+        out, mom, asg = block.mixer_block(x, st, *mw, return_assign=True, **kw)
+        again = block.mixer_block(x, st, *mw, return_assign=True, **kw)
+        torch.cuda.synchronize()
+        check(block.PATHS[key] == before + 2, f"K2 {key} {name}")
+        check(all(torch.equal(a, r) for a, r in zip((out, mom, asg), again)), f"K2 bits {name}")
+        ref, _, rasg = block.mixer_block_plain(x, st, *mw, return_assign=True, **kw)
+        diff = (out.float() - ref.float()).abs()
+        ymax = (ref.float() - x.float()).abs().max().item()
+        ulp = bf16_ulp(ref.float().abs().max().item())
+        agree = (asg == rasg).float().mean().item()
+        dsame = diff[(asg == rasg).all(dim=1)].max().item()  # tokens whose every head agrees
+        if wide_k2:
+            check(agree >= 0.9999 and diff.mean().item() <= 1e-4 * ymax
+                  and dsame <= 2 * ulp, f"K2 wide layout {name}")
+        else:
+            check(agree >= 0.99 and diff.mean().item() <= 0.02 * ymax
+                  and diff.max().item() <= ymax + 2 * ulp, f"K2 {name}")
+        log(f"[check wide {name} C{c} hid {hid} bf16] K1 max|diff| {errs[0]:.2f} ulp, z1 "
+            f"{errs[1]:.2f} ulp; K2 ({'wide' if wide_k2 else 'base'} layout, G {groups}) "
+            f"max|diff| {diff.max().item():.4e} ({diff.max().item() / ulp:.2f} ulp) mean|diff| "
+            f"{diff.mean().item():.4e} max|y| {ymax:.4e} assignment agreement {agree:.6f}, "
+            f"max|diff| where every head agrees {dsame / ulp:.2f} ulp; "
+            f"two runs of each give equal bits")
+        stats["mlp_block_wide"]["max_abs_err"] = max(stats["mlp_block_wide"]["max_abs_err"],
+                                                     errs[0])
+        if wide_k2:
+            stats["mixer_block_wide"]["max_abs_err"] = max(
+                stats["mixer_block_wide"]["max_abs_err"], diff.max().item() / ulp)
+        del ref, rasg, out, again, diff
+        # times: K1 at every shape, K2's wide layout where it runs
+        timed = [("mlp_block_wide", lambda: block.mlp_block(x, st, *lw),
+                  lambda: block.mlp_block_plain(x, st, *lw), "mlp_block_mma_kernel_wide",
+                  mlp_bounds(b, h, w, c, hid),
+                  {"tokens_per_cta": kernels.mlp_wide_tokens(c),
+                   **kernels.mlp_block_info(c, kernels.mlp_wide_tokens(c), dev)})]
+        if wide_k2:
+            timed.append(("mixer_block_wide", lambda: block.mixer_block(x, st, *mw, **kw),
+                          lambda: block.mixer_block_plain(x, st, *mw, **kw),
+                          "mixer_block_kernel", mixer_bounds(b, h, w, c, heads, d, fold),
+                          {"groups": groups, **kernels.mixer_block_info(
+                              torch.bfloat16, c, inner, heads, (h // fold, w // fold), 2, 2,
+                              groups, dev)}))
+        for kname, fk, fp, trace_name, (flops, byts), geo in timed:
+            ms, pms = cuda_ms(fk, 10), cuda_ms(fp, 2, warmup=1)
+            dms, _ = device_ms(fk, trace_name, 10)
+            bms, by = bound_ms(flops, byts)
+            log(f"[time {kname} {name}] kernel {ms:.4f} ms (device {dms:.4f} in a trace), "
+                f"plain {pms:.4f} ms, bound {bms:.5f} ms ({by}), {flops / dms / 1e9:.1f} "
+                f"TFLOP/s, x{calls} per request")
+            log_geometry(kname, name, geo)
+            stats[kname]["per_shape"].append(
+                {"shape": name, "batch": b, "ms": ms, "device_ms": dms, "plain_ms": pms,
+                 "bound_ms": bms, "bound_by": by, "calls_per_request": calls, **geo})
+            tot = stats[kname]["per_request"][name.split("_")[0]]
+            for k, v in zip(totals, (ms, dms, pms, bms, flops / PEAK_FLOPS * 1e3,
+                                     byts / PEAK_BYTES * 1e3)):
+                tot[k] += calls * v
+        del x, st, mw, lw
+        torch.cuda.empty_cache()
+
+    # the serving configurations' forwards: every launch by path
+    unfused, plain = [], {"mixer_block_plain": 0, "mlp_block_plain": 0}
+    fused_ok = cluster_block.ClusterBlock.fused_ok
+    twins = {k: getattr(block, k) for k in plain}
+
+    def counted_fused_ok(self, x):
+        ok = fused_ok(self, x)
+        if not ok:
+            unfused.append(tuple(x.shape))
+        return ok
+
+    def counted(k):
+        def f(*a, **kw):
+            plain[k] += 1
+            return twins[k](*a, **kw)
+        return f
+
+    cluster_block.ClusterBlock.fused_ok = counted_fused_ok
+    for k in plain:
+        setattr(block, k, counted(k))
+    try:
+        for phi, want in WIDE_PATHS.items():
+            cfg = ModelConfig(phi=phi, variant="coc_small", compute_dtype="bfloat16",
+                              input_size=(512, 512))
+            model = create_model(cfg)
+            img = torch.randn(2, 512, 512, 3, device=dev)
+            rad = torch.rand(2, 512, 512, 4, device=dev)
+            before = dict(block.PATHS)
+            with torch.no_grad():
+                det, seg = model(img, rad)
+            torch.cuda.synchronize()
+            got = {}
+            for k in block.PATHS:
+                if block.PATHS[k] != before[k]:
+                    key = "mlp_block/mma" if k.startswith("mlp_block/mma") else k
+                    got[key] = got.get(key, 0) + block.PATHS[k] - before[k]
+            log(f"[wide paths vrnet-{phi}] batch-2 forward: {got}; unfused blocks {unfused}; "
+                f"plain twin calls {plain}")
+            check(got == want, f"vrnet-{phi} paths {got}, expected {want}")
+            check(not unfused and not any(plain.values()), f"vrnet-{phi} fell back")
+            check(all(bool(torch.isfinite(o).all()) for o in (*det, seg)),
+                  f"vrnet-{phi} finite outputs")
+            stats["mlp_block_wide"]["launches"][f"vrnet-{phi}"] = (
+                want.get("mlp_block/wide64", 0) + want["mlp_block/wide128"])
+            stats["mixer_block_wide"]["launches"][f"vrnet-{phi}"] = want.get(
+                "mixer_block/tc_wide", 0)
+            del model, det, seg
+            torch.cuda.empty_cache()
+    finally:
+        cluster_block.ClusterBlock.fused_ok = fused_ok
+        for k, f in twins.items():
+            setattr(block, k, f)
+
+    # the kernels line: the totals a vrnet-l request (the l-serve-b256 cell),
+    # vrnet-s's beside them
+    report = []
+    for kname, s in stats.items():
+        for phi, t in s["per_request"].items():
+            t["bound_by"] = "operations" if t.pop("flops_ms") >= t.pop("bytes_ms") else "bytes"
+            if t["device_ms"]:
+                t["roofline_pct"] = 100 * t["bound_ms"] / t["device_ms"]
+                log(f"[time {kname}] a 256-frame vrnet-{phi} request: {t['ms']:.4f} ms "
+                    f"(device {t['device_ms']:.4f} in a trace), plain {t['plain_ms']:.4f} "
+                    f"ms, bound {t['bound_ms']:.4f} ms ({t['roofline_pct']:.2f}% of it)")
+        lt = s["per_request"]["l"]
+        report.append({
+            "name": kname, "route": "cuda", **WIDE_KERNELS[kname],
+            "launches": s["launches"]["vrnet-l"], "launches_per_forward": s["launches"],
+            "max_err_bf16_ulps": s["max_abs_err"], "ms": lt["ms"], "device_ms": lt["device_ms"],
+            "plain_ms": lt["plain_ms"], "bound_ms": lt["bound_ms"], "bound_by": lt["bound_by"],
+            "library_ms": None, "per": "256-frame vrnet-l request",
+            "per_request": s["per_request"], "per_shape": s["per_shape"]})
+    return report
 
 
 def log_geometry(kname, name, info):
@@ -2320,6 +2570,10 @@ def main() -> int:
                     stats_out["mlp_block"]["max_abs_err"], dmax)
                 inputs[name] = (x, st, mw, lw, kw)
 
+    # ---- 2b. the wide shapes (vrnet-l, vrnet-s): K1's wide kernel, K2's
+    # wide layout, the l and s forwards' paths, times ----
+    wide_report = check_wide(dev)
+
     # ---- 3. main path: r05 weights, nano coc_small 512^2 bf16, batch 8 ----
     # r05 was trained with signed seg logits and raw radar (radar_norm "none")
     cfg = ModelConfig(phi="nano", variant="coc_small", compute_dtype="bfloat16",
@@ -2481,6 +2735,7 @@ def main() -> int:
             "per_shape": stats_out[kname]["per_shape"],
         })
     del inputs
+    report.extend(wide_report)
 
     fwd = {}
     for bs in (8, 32):

@@ -73,12 +73,56 @@ def test_mixer_feat_path(c, d, dtype, tc):
 
 @pytest.mark.parametrize("c, hid, dtype, mma", [
     (16, 128, torch.bfloat16, True), (160, 640, torch.bfloat16, True),
-    (176, 640, torch.bfloat16, False),   # wider than the accumulators' 160
+    (176, 640, torch.bfloat16, True),    # past the accumulators' 160: the wide kernel
+    (656, 2624, torch.bfloat16, False),  # past the wide kernel's 640
     (24, 96, torch.bfloat16, False), (64, 100, torch.bfloat16, False),
     (64, 256, torch.float32, False),
 ])
 def test_mlp_mma_shape(c, hid, dtype, mma):
     assert kernels.mlp_mma_shape(c, hid, dtype) is mma
+
+
+# the ClusterBlocks of phi l (width 1.0) coc_small at 512^2: (name, H*W per
+# sample, C, hid); K1 runs C 256-640 on its wide tensor-core kernel
+L_PATH = [("stage0", 128 * 128, 64, 512), ("stage1", 64 * 64, 128, 1024),
+          ("stage2", 32 * 32, 320, 1280), ("stage3", 16 * 16, 512, 2048),
+          ("p5", 16 * 16, 512, 2048), ("p4", 32 * 32, 640, 2560), ("p3", 64 * 64, 256, 1024)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("name, hw, c, hid", L_PATH, ids=[s[0] for s in L_PATH])
+def test_l_shapes_take_the_wide_kernel_in_bf16(name, hw, c, hid, dtype):
+    """bf16: every l block on tensor cores, C > 160 on a wide kernel with
+    its tokens a CTA (128 up to C = 320, else 64, whatever the token count)
+    and its own PATHS key; f32 keeps the CUDA-core path."""
+    mma = kernels.mlp_mma_shape(c, hid, dtype)
+    assert mma is (dtype == torch.bfloat16)
+    assert kernels.mlp_wide(c) is (c > 160)
+    if mma and kernels.mlp_wide(c):
+        tokens = kernels.mlp_wide_tokens(c)
+        assert tokens == (128 if c <= 320 else 64)
+        for batch in (1, 2, 256):
+            assert kernels._mlp_tokens(batch * hw, c, hid, dtype, None) == tokens
+        assert f"mlp_block/wide{tokens}" in block.PATHS
+    if not mma:
+        assert kernels._mlp_tokens(hw, c, hid, dtype, None) == 0
+    assert {"mixer_block/tc_wide", "mixer_block/fma_wide"} <= set(block.PATHS)
+
+
+@pytest.mark.parametrize("c", range(176, kernels.MLP_WIDE_MAX_C + 1, 16))
+def test_wide_kernel_splits_fc2_channels_evenly(c):
+    """The wide kernels' fc2 groups (4 up to C = 320, where a CTA's 16 warps
+    take 128 tokens in 4 tiles of 32, else 8 over 2 tiles) own C / 8 n-tiles
+    between them, each a contiguous run of at most the instantiated width,
+    with no gap and no overlap (n_lo, cnt, Wide128 and Wide64 in
+    csrc/mlp_block.cu)."""
+    groups, inst = (4, (8, 10)) if c <= 320 else (8, (8, 10))
+    nt = c // 8
+    runs = [(g * nt // groups, (g + 1) * nt // groups) for g in range(groups)]
+    assert runs[0][0] == 0 and runs[-1][1] == nt
+    assert all(a[1] == b[0] for a, b in zip(runs, runs[1:]))
+    width = next(k for k in inst if -(-nt // groups) <= k)
+    assert max(hi - lo for lo, hi in runs) <= width
 
 
 # ---------------------------------------------------------------------------
